@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.flash_attn import flash_attention
+from ..ops.flash_attn import flash_attention_qkv
 from .blocks import wide
 
 
@@ -51,12 +51,8 @@ class Attention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x):
-        B, L, C = x.shape
-        h = self.num_heads
-        qkv = self.qkv(x).reshape(B, L, 3, h, C // h).permute(2, 0, 3, 1, 4)
-        q, k, v = (t.contiguous() for t in qkv.unbind(0))          # (B, h, L, d)
-        out = flash_attention(q, k, v)
-        return self.proj(out.transpose(1, 2).reshape(B, L, C))
+        # the kernel reads q, k, v from the packed projection and writes (B, L, C)
+        return self.proj(flash_attention_qkv(self.qkv(x), self.num_heads))
 
 
 class Mlp(nn.Module):

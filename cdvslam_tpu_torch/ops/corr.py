@@ -9,8 +9,9 @@ the update operator's weights expect.
 
 ``corr`` keeps the JAX package's signature and layout; ``corr_cl_plain``
 takes the port's internal layout, with the frame pyramids channels-last
-``(NF, H, W, C)`` so that the C channels of one tap are contiguous. The
-CUDA kernel in ``corr_cuda`` computes ``corr_cl_plain``.
+``(NF, H, W, C)`` so that the C channels of one tap are contiguous.
+``corr_pyramid_plain`` runs it at both levels of the update; the CUDA
+kernel in ``corr_cuda`` computes ``corr_pyramid_plain``.
 """
 from __future__ import annotations
 
@@ -56,6 +57,14 @@ def corr_cl_plain(gmap, fmap_cl, coords, ii, jj, radius: int = 3):
     if not parts:
         return torch.zeros((0, D - 1, D - 1, P, P), dtype=gmap.dtype, device=dev)
     return torch.cat(parts, 0)
+
+
+def corr_pyramid_plain(gmap, fmap1_cl, fmap2_cl, coords, ii, jj, radius: int = 3):
+    """Both pyramid levels, level 2 at coords / 4, stacked with the level
+    innermost: (E, 2R+1, 2R+1, P, P, 2)."""
+    c1 = corr_cl_plain(gmap, fmap1_cl, coords, ii, jj, radius)
+    c2 = corr_cl_plain(gmap, fmap2_cl, coords / 4.0, ii, jj, radius)
+    return torch.stack([c1, c2], -1)
 
 
 def corr(gmap, fmap, coords, ii, jj, radius: int = 3):

@@ -29,10 +29,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of each kernel library: {symbol: argtypes}
 SIGNATURES = {
-    "corr": {"corr_forward": [_P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _P]},
-    "flash_attn": {"flash_attn_forward": [_P, _P, _P, _P,
-                                          _I, _I, _I, ctypes.c_float, _P]},
+    "corr": {"corr_pyramid_forward": [_P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "flash_attn": {"flash_attn_qkv_forward": [_P, _P, _I, _I, _I, ctypes.c_float, _P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -14,7 +14,7 @@ from ..ba import INFERENCE_PARAMS, ba_solve
 from ..geom import flow_mag, transform
 from ..lie import SE3, se3_exp, se3_inv, se3_log, se3_mul
 from ..models.update import UpdateAux
-from ..ops.corr_cuda import corr_cl
+from ..ops.corr_cuda import corr_pyramid_cl
 
 
 class EdgeIndex(NamedTuple):
@@ -29,12 +29,12 @@ class EdgeIndex(NamedTuple):
 
 
 def corr_features(gmap_buf, fmap1, fmap2, coords, gmap_idx, jjm, radius=3):
-    """Two-level correlation -> flattened features (1, E, 2*49*P*P).
-    coords (E, 2, P, P) float32 at level 1; fmap1/fmap2 channels-last."""
+    """Two-level correlation (one kernel launch) -> flattened features
+    (1, E, 2*49*P*P). coords (E, 2, P, P) float32 at level 1; fmap1/fmap2
+    channels-last."""
     E = coords.shape[0]
-    c1 = corr_cl(gmap_buf, fmap1, coords, gmap_idx, jjm, radius)
-    c2 = corr_cl(gmap_buf, fmap2, coords / 4.0, gmap_idx, jjm, radius)
-    return torch.stack([c1, c2], -1).reshape(1, E, -1)
+    return corr_pyramid_cl(gmap_buf, fmap1, fmap2, coords, gmap_idx, jjm,
+                           radius).reshape(1, E, -1)
 
 
 def update_body(model, poses, patches_win, intr_full, imap_buf, gmap_buf,

@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""Time a port kernel against another version of its source on one GPU.
+
+    python3 kernel_ab.py corr OTHER.cu         # csrc/corr.cu against OTHER.cu
+    python3 kernel_ab.py flash_attn OTHER.cu   # csrc/flash_attn.cu against OTHER.cu
+
+OTHER.cu must export the same C function as the kernel it stands in for
+(``corr_pyramid_forward`` or ``flash_attn_qkv_forward``). Both are built
+with the same nvcc flags and called on the same inputs at the main-path
+shape (chip_smoke.py's phase-1 draw for corr; packed qkv (1, 1891, 1152)
+bf16 for flash_attn, with SDPA on the same tensor beside them), in 10
+rounds of 30 calls whose order alternates. Prints one JSON line: the
+card, the max difference between the two outputs, the median ms of each
+and every round. Needs one CUDA card; imports nothing of JAX.
+"""
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+
+def main():
+    name, other = sys.argv[1], Path(sys.argv[2]).resolve()
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from cdvslam_tpu_torch.ops import corr_cuda, flash_attn, native
+    if not torch.cuda.is_available():
+        print("kernel_ab.py: no CUDA device", file=sys.stderr)
+        return 2
+    symbol = {"corr": "corr_pyramid_forward", "flash_attn": "flash_attn_qkv_forward"}[name]
+    native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = native.BUILD_DIR / f"ab_{name}_{other.stem}.so"
+    subprocess.run([native.nvcc_path(), *native.NVCC_FLAGS, "-o", str(so), str(other)],
+                   check=True, capture_output=True)
+    fn = getattr(ctypes.CDLL(str(so)), symbol)
+    fn.argtypes = native.SIGNATURES[name][symbol]
+    fn.restype = ctypes.c_int
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    if name == "corr":
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        args = cs._corr_inputs(gen, torch.bfloat16)
+        g, f1, f2, c, ii, jj = args
+
+        def other_fn():
+            out = torch.empty((c.shape[0], 7, 7, 3, 3, 2), dtype=g.dtype, device="cuda")
+            native.check(fn(g.data_ptr(), f1.data_ptr(), f2.data_ptr(), c.data_ptr(),
+                            ii.data_ptr(), jj.data_ptr(), out.data_ptr(), c.shape[0],
+                            g.shape[0], f1.shape[0], cs.C, f1.shape[1], f1.shape[2],
+                            f2.shape[1], f2.shape[2], 1, stream()), symbol)
+            return out
+        fns = {"current": lambda: corr_cuda.corr_pyramid_cl(*args), "other": other_fn}
+    else:
+        B, h, L, d = cs.ATTN_SHAPE
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        qkv = torch.randn((B, L, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.reshape(B, L, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+
+        def other_fn():
+            out = torch.empty((B, L, h * d), dtype=qkv.dtype, device="cuda")
+            native.check(fn(qkv.data_ptr(), out.data_ptr(), B, L, h, d ** -0.5, stream()),
+                         symbol)
+            return out
+        fns = {"current": lambda: flash_attn.flash_attention_qkv(qkv, h), "other": other_fn,
+               "sdpa": lambda: F.scaled_dot_product_attention(q, k, v)}
+
+    diff = (fns["current"]().float() - fns["other"]().float()).abs().max().item()
+    rounds = {key: [] for key in fns}
+    for i in range(10):
+        for key in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+            rounds[key].append(cs.cuda_time(fns[key], 30))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"kernel": name, "other": other.name, "card": smi, "max_abs_diff": diff,
+                      "median_ms": {k_: statistics.median(v_) for k_, v_ in rounds.items()},
+                      "rounds_ms": rounds}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

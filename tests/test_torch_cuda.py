@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
-from cdvslam_tpu_torch.ops.corr import corr_cl_plain
+from cdvslam_tpu_torch.ops.corr import corr_pyramid_plain
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
@@ -25,27 +25,37 @@ def card():
     return torch.device("cuda")
 
 
-def _corr_case(dev, dtype, E=777, K=90, NF=7, C=24, H=30, W=47):
+def _corr_case(dev, dtype, E=777, K=90, NF=7, C=24, H=60, W=94, layout="border"):
+    """Level-1 fmap (H, W) and level-2 (H/4, W/4). layout: "border" (centers
+    spread past every border, pixels jittered by +-1.5 px), "rigid" (3x3
+    patches of 1 px spacing plus +-0.2 px jitter) or "scattered" (+-20 px
+    jitter: the union box does not fit, the kernel reads global memory)."""
     g = torch.Generator(device=dev).manual_seed(0)
     gmap = torch.randn((K, C, 3, 3), generator=g, device=dev).to(dtype)
-    fmap = torch.randn((NF, H, W, C), generator=g, device=dev).to(dtype)
-    cx = torch.rand((E, 1, 1), generator=g, device=dev) * (W + 12) - 6
-    cy = torch.rand((E, 1, 1), generator=g, device=dev) * (H + 12) - 6
-    jit = torch.rand((E, 2, 3, 3), generator=g, device=dev) * 3 - 1.5
-    coords = (torch.stack([cx.expand(E, 3, 3), cy.expand(E, 3, 3)], 1) + jit).contiguous()
+    fmap1 = torch.randn((NF, H, W, C), generator=g, device=dev).to(dtype)
+    fmap2 = torch.randn((NF, H // 4, W // 4, C), generator=g, device=dev).to(dtype)
+    cx = torch.rand((E, 1, 1), generator=g, device=dev) * (W + 24) - 12
+    cy = torch.rand((E, 1, 1), generator=g, device=dev) * (H + 24) - 12
+    jit = {"border": 1.5, "rigid": 0.2, "scattered": 20.0}[layout]
+    noise = (torch.rand((E, 2, 3, 3), generator=g, device=dev) * 2 - 1) * jit
+    if layout == "rigid":
+        d = torch.arange(3, device=dev, dtype=torch.float32) - 1
+        noise = noise + torch.stack([d[None, :].expand(3, 3), d[:, None].expand(3, 3)])
+    coords = (torch.stack([cx.expand(E, 3, 3), cy.expand(E, 3, 3)], 1) + noise).contiguous()
     ii = torch.randint(0, K, (E,), generator=g, device=dev, dtype=torch.int32)
     jj = torch.randint(0, NF, (E,), generator=g, device=dev, dtype=torch.int32)
-    return gmap, fmap, coords, ii, jj
+    return gmap, fmap1, fmap2, coords, ii, jj
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_corr_kernel_matches_plain(card, dtype):
-    args = _corr_case(card, dtype)
+def _check_corr(args, dtype):
     before = corr_cuda.LAUNCHES.count
-    got = corr_cuda.corr_cl(*args).float()
-    assert corr_cuda.LAUNCHES.count == before + 1
-    g, f, c, ii, jj = args
-    want = corr_cl_plain(g.float(), f.float(), c, ii, jj)
+    got = corr_cuda.corr_pyramid_cl(*args).float()
+    assert corr_cuda.LAUNCHES.count == before + (1 if args[3].shape[0] else 0)
+    g, f1, f2, c, ii, jj = args
+    want = corr_pyramid_plain(g.float(), f1.float(), f2.float(), c, ii, jj)
+    assert got.shape == want.shape == (c.shape[0], 7, 7, 3, 3, 2)
+    if c.shape[0] == 0:
+        return
     err = (got - want).abs().max().item()
     if dtype == torch.float32:
         assert err <= 1e-4
@@ -53,29 +63,56 @@ def test_corr_kernel_matches_plain(card, dtype):
         assert err <= 5e-3 * want.abs().max().item()
 
 
-def test_flash_attention_matches_plain(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_corr_kernel_matches_plain(card, dtype):
+    _check_corr(_corr_case(card, dtype), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,layout", [(0, "border"), (1, "border"), (777, "rigid"),
+                                      (777, "scattered"), (1203, "border")])
+def test_corr_kernel_cases(card, dtype, E, layout):
+    _check_corr(_corr_case(card, dtype, E=E, layout=layout), dtype)
+
+
+@pytest.mark.parametrize("L", [1, 64, 65, 301, 1891])
+def test_flash_attention_matches_plain(card, L):
     g = torch.Generator(device=card).manual_seed(1)
-    q, k, v = (torch.randn((1, 6, 301, 64), generator=g, device=card).to(torch.bfloat16)
-               for _ in range(3))
+    qkv = torch.randn((1, L, 3 * 384), generator=g, device=card).to(torch.bfloat16)
     before = flash_attn.LAUNCHES.count
-    got = flash_attn.flash_attention(q, k, v).float()
+    got = flash_attn.flash_attention_qkv(qkv, 6).float()
     assert flash_attn.LAUNCHES.count == before + 1
-    want = flash_attn.attention_plain(q, k, v).float()
+    want = flash_attn.attention_qkv_plain(qkv, 6).float()
+    assert got.shape == want.shape == (1, L, 384)
+    assert (got - want).abs().max().item() <= 2e-2
+    assert ((got - want).norm() / want.norm()).item() <= 1e-2
+
+
+def test_flash_attention_batches_and_heads(card):
+    g = torch.Generator(device=card).manual_seed(2)
+    qkv = torch.randn((2, 130, 3 * 128), generator=g, device=card).to(torch.bfloat16)
+    got = flash_attn.flash_attention_qkv(qkv, 2).float()
+    want = flash_attn.attention_qkv_plain(qkv, 2).float()
     assert (got - want).abs().max().item() <= 2e-2
     assert ((got - want).norm() / want.norm()).item() <= 1e-2
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
-    q = torch.randn((1, 2, 10, 32), device=card, dtype=torch.bfloat16)
+    qkv = torch.randn((1, 10, 3 * 64), device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        flash_attn.flash_attention(q, q, q)
-    gmap, fmap, coords, ii, jj = _corr_case(card, torch.float32)
+        flash_attn.flash_attention_qkv(qkv, 2)               # head dim 32
     with pytest.raises(ValueError):
-        corr_cuda.corr_cl(gmap, fmap, coords, ii.long(), jj)
+        flash_attn.flash_attention_qkv(qkv.float(), 1)       # float32
+    strided = torch.randn((1, 10, 2 * 3 * 64), device=card, dtype=torch.bfloat16)[..., :192]
+    with pytest.raises(ValueError):
+        flash_attn.flash_attention_qkv(strided, 1)
+    gmap, f1, f2, coords, ii, jj = _corr_case(card, torch.float32)
+    with pytest.raises(ValueError):
+        corr_cuda.corr_pyramid_cl(gmap, f1, f2, coords, ii.long(), jj)
     # the kernel reads a tap's channels in 16-byte loads
-    unaligned = fmap.new_empty(fmap.numel() + 1)[1:].view(fmap.shape).copy_(fmap)
+    unaligned = f1.new_empty(f1.numel() + 1)[1:].view(f1.shape).copy_(f1)
     with pytest.raises(ValueError):
-        corr_cuda.corr_cl(gmap, unaligned, coords, ii, jj)
-    gmap20, fmap20, coords, ii, jj = _corr_case(card, torch.bfloat16, C=20)
+        corr_cuda.corr_pyramid_cl(gmap, unaligned, f2, coords, ii, jj)
+    gmap20, f1, f2, coords, ii, jj = _corr_case(card, torch.bfloat16, C=20)
     with pytest.raises(ValueError):
-        corr_cuda.corr_cl(gmap20, fmap20, coords, ii, jj)
+        corr_cuda.corr_pyramid_cl(gmap20, f1, f2, coords, ii, jj)

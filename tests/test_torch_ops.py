@@ -15,8 +15,10 @@ from cdvslam_tpu.models.dinov2 import Attention as JAttention
 from cdvslam_tpu.ops.corr import corr as jcorr
 from cdvslam_tpu.ops.patchify import patchify as jpatchify
 from cdvslam_tpu.ops.scatter import neighbors_np as jneighbors
+from cdvslam_tpu.slam.kernels import corr_features as jcorr_features
 from cdvslam_tpu_torch.ops import SegmentPlan, corr, corr_cl_plain, neighbors_np, patchify
 from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
+from cdvslam_tpu_torch.slam.kernels import corr_features
 
 torch.set_num_threads(2)
 
@@ -62,35 +64,77 @@ def test_corr_matches_jax(seed):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-4, rtol=1e-4)
 
 
+def _pyramid_inputs(seed, E=300, K=40, NF=5, C=24, H=32, W=44):
+    """Level-1 inputs as _corr_inputs plus the level-2 fmap (H/4, W/4)."""
+    gmap, fmap1, coords, ii, jj = _corr_inputs(seed, E, K, NF, C, H, W)
+    fmap2 = np.random.default_rng(seed + 100).standard_normal(
+        (1, NF, C, H // 4, W // 4)).astype(np.float32)
+    return gmap, fmap1, fmap2, coords, ii, jj
+
+
+def _cl(fmap):
+    return torch.from_numpy(fmap[0]).permute(0, 2, 3, 1).contiguous()
+
+
 def test_corr_wrapper_on_cpu_runs_plain_version_without_launching():
-    gmap, fmap, coords, ii, jj = _corr_inputs(2, E=64)
+    gmap, fmap1, fmap2, coords, ii, jj = _pyramid_inputs(2, E=64)
     g = torch.from_numpy(gmap[0])
-    f = torch.from_numpy(fmap[0]).permute(0, 2, 3, 1).contiguous()
     c = torch.from_numpy(coords[0])
+    ti, tj = torch.from_numpy(ii), torch.from_numpy(jj)
     before = corr_cuda.LAUNCHES.count
-    out = corr_cuda.corr_cl(g, f, c, torch.from_numpy(ii), torch.from_numpy(jj))
+    out = corr_cuda.corr_pyramid_cl(g, _cl(fmap1), _cl(fmap2), c, ti, tj)
     assert corr_cuda.LAUNCHES.count == before == 0
-    ref = corr_cl_plain(g, f, c, torch.from_numpy(ii), torch.from_numpy(jj))
-    assert torch.equal(out, ref)
+    assert out.shape == (64, 7, 7, 3, 3, 2)
+    # level 1 at coords, level 2 at coords / 4, level innermost
+    assert torch.equal(out[..., 0], corr_cl_plain(g, _cl(fmap1), c, ti, tj))
+    assert torch.equal(out[..., 1], corr_cl_plain(g, _cl(fmap2), c / 4.0, ti, tj))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_corr_pyramid_matches_jax_corr_features(seed):
+    """The port's corr_features (corr_pyramid_cl, plain on the CPU) against
+    the JAX corr_features (XLA gather path on the CPU)."""
+    gmap, fmap1, fmap2, coords, ii, jj = _pyramid_inputs(seed)
+    ref = jcorr_features(jnp.asarray(gmap[0]), jnp.asarray(fmap1[0]), jnp.asarray(fmap2[0]),
+                         jnp.asarray(coords), jnp.asarray(ii), jnp.asarray(jj))
+    before = corr_cuda.LAUNCHES.count
+    out = corr_features(torch.from_numpy(gmap[0]), _cl(fmap1), _cl(fmap2),
+                        torch.from_numpy(coords[0]), torch.from_numpy(ii), torch.from_numpy(jj))
+    assert corr_cuda.LAUNCHES.count == before == 0
+    assert out.shape == ref.shape == (1, 300, 2 * 49 * 9)
+    # as test_corr_matches_jax: f32 dots of 24 products, summed in another order
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-4, rtol=1e-4)
+
+
+def _attention_through_wrapper(B, L, C, h, seed):
+    """JAX Attention (einsum branch on the CPU) and the port's packed-qkv
+    wrapper on the same projection weights."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, L, C)).astype(np.float32)
+    mod = JAttention(C, h)
+    p = mod.init(jax.random.PRNGKey(seed), jnp.asarray(x))
+    ref = mod.apply(p, jnp.asarray(x))
+    w = np.asarray(p["params"]["qkv"]["kernel"])
+    b = np.asarray(p["params"]["qkv"]["bias"])
+    before = flash_attn.LAUNCHES.count
+    out = flash_attn.flash_attention_qkv(torch.from_numpy(x @ w + b), h)
+    assert flash_attn.LAUNCHES.count == before == 0
+    assert out.shape == (B, L, C)
+    pw = np.asarray(p["params"]["proj"]["kernel"])
+    pb = np.asarray(p["params"]["proj"]["bias"])
+    return out.numpy() @ pw + pb, np.asarray(ref)
 
 
 def test_flash_attention_wrapper_matches_jax_einsum_path():
-    rng = np.random.default_rng(3)
-    B, L, C, h = 1, 37, 384, 6
-    x = rng.standard_normal((B, L, C)).astype(np.float32)
-    mod = JAttention(C, h)
-    p = mod.init(jax.random.PRNGKey(0), jnp.asarray(x))
-    ref = mod.apply(p, jnp.asarray(x))                          # einsum branch on CPU
-    w = np.asarray(p["params"]["qkv"]["kernel"])
-    b = np.asarray(p["params"]["qkv"]["bias"])
-    qkv = (x @ w + b).reshape(B, L, 3, h, C // h).transpose(2, 0, 3, 1, 4)
-    before = flash_attn.LAUNCHES.count
-    out = flash_attn.flash_attention(*(torch.from_numpy(np.ascontiguousarray(t)) for t in qkv))
-    assert flash_attn.LAUNCHES.count == before == 0
-    pw = np.asarray(p["params"]["proj"]["kernel"])
-    pb = np.asarray(p["params"]["proj"]["bias"])
-    got = out.numpy().transpose(0, 2, 1, 3).reshape(B, L, C) @ pw + pb
-    np.testing.assert_allclose(got, np.asarray(ref), atol=1e-4, rtol=1e-4)
+    got, ref = _attention_through_wrapper(1, 37, 384, 6, 3)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,L,C,h", [(1, 1, 384, 6), (1, 65, 384, 6), (2, 20, 128, 2)])
+def test_attention_qkv_plain_matches_jax_attention(B, L, C, h):
+    """attention_qkv_plain through the wrapper on CPU tensors: no launch."""
+    got, ref = _attention_through_wrapper(B, L, C, h, L)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
 
 
 def test_segment_sum_is_exact_and_repeatable():
