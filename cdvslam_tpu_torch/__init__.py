@@ -2,5 +2,7 @@
 
 A port of the JAX package ``cdvslam_tpu``: the CDV odometry main path
 (``slam.SLAM``) with the patch-correlation and DINO flash-attention
-kernels under ``csrc/``. It imports torch and numpy, never JAX.
+kernels under ``csrc/``, and the proximity loop closure with its
+block-sparse global BA (``loop/``, ``ba/global_ba.py``). It imports torch
+and numpy, never JAX.
 """

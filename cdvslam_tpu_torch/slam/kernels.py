@@ -42,9 +42,11 @@ def update_body(model, poses, patches_win, intr_full, imap_buf, gmap_buf,
                 wd4: float, mm_sel=None, *, NW: int, KWIN: int, iterations: int):
     """One update over the patch window ``patches_win`` (KWIN rows).
 
-    Returns (poses, patches_win, net, delta_norm, mm): mm is the mean flow
-    magnitude over the edges of each of mm_sel's two (E,) masks, computed
-    on the post-BA poses, or None without mm_sel.
+    Returns (poses, patches_win, net, target, weight, delta_norm, mm):
+    target (E, 2) = center + the update's delta and weight (E, 2) are what
+    the BA solved with; mm is the mean flow magnitude over the edges of each
+    of mm_sel's two (E,) masks, computed on the post-BA poses, or None
+    without mm_sel. With ``iterations`` 0 no BA runs.
     """
     P = patches_win.shape[-1]
     ii, jj, kk = idx.ii, idx.jj, idx.kk_local
@@ -64,9 +66,11 @@ def update_body(model, poses, patches_win, intr_full, imap_buf, gmap_buf,
 
     center = coords[..., P // 2, P // 2, :]
     target = center[0] + d[0].to(poses.dtype)
-    poses, patches_win = ba_solve(
-        poses, patches_win, intr_full[0], target, w[0].to(poses.dtype), ii, jj, kk, None,
-        t0, N=NW, K=KWIN, iterations=iterations, params=INFERENCE_PARAMS)
+    weight = w[0].to(poses.dtype)
+    if iterations:
+        poses, patches_win = ba_solve(
+            poses, patches_win, intr_full[0], target, weight, ii, jj, kk, None,
+            t0, N=NW, K=KWIN, iterations=iterations, params=INFERENCE_PARAMS)
 
     mm = None
     if mm_sel is not None:
@@ -76,7 +80,7 @@ def update_body(model, poses, patches_win, intr_full, imap_buf, gmap_buf,
         sel = mm_sel.to(fmean.dtype)
         mm = (sel * fmean).sum(-1) / sel.sum(-1).clamp(min=1.0)
     delta_norm = torch.linalg.norm(d[0].float(), dim=-1)
-    return poses, patches_win, net_new[0].to(net.dtype), delta_norm, mm
+    return poses, patches_win, net_new[0].to(net.dtype), target, weight, delta_norm, mm
 
 
 def motion_extrapolate(poses, n: int, fac: float, damping: float):

@@ -8,7 +8,10 @@ behind: one update per steady-state frame, the keyframe decision applied
 two frames after it was measured (keyed by physical frame id), the
 12-update initialization at 8 frames, edge retirement, keyframe removal
 with the relative-pose delta chain, and the 12-update termination with
-pose interpolation. Heavy work runs on ``device`` (the card unless the
+pose interpolation. With ``LOOP_CLOSURE`` (the proximity backend) it also
+adds loop edges every ``GLOBAL_OPT_FREQ`` keyframes, keeps the retired
+edges, and runs the block-sparse global BA after an update that holds
+long-range edges. Heavy work runs on ``device`` (the card unless the
 caller asks for the CPU); edge lists and control flow stay on the host.
 
 Configurations outside this slice raise ``NotImplementedError``.
@@ -20,8 +23,10 @@ from warnings import warn
 import numpy as np
 import torch
 
+from ..ba.global_ba import build_global_indices, global_ba_solve
 from ..config import get_cfg
 from ..lie import se3_identity, se3_inv, se3_mul
+from ..loop.proximity import edges_loop
 from ..models import CDVNet, build_update_aux
 from ..models.patchifier import coords_grid_with_index, pyramidify, select_random_grid
 from ..ops.patchify import patchify
@@ -34,7 +39,7 @@ def _unsupported(cfg, network, viz):
         return f"network={network!r} (only 'cdv' is ported)"
     if viz:
         return "viz"
-    for key in ("LOOP_CLOSURE", "CLASSIC_LOOP_CLOSURE", "FILTER_DYNAMIC_CLASS"):
+    for key in ("CLASSIC_LOOP_CLOSURE", "FILTER_DYNAMIC_CLASS"):
         if cfg[key]:
             return key
     for key in ("SEG_HEAD", "DEPTH_HEAD"):
@@ -108,11 +113,14 @@ class SLAM:
         self.M = self.cfg.PATCHES_PER_FRAME
         self.N = self.cfg.BUFFER_SIZE
         self.pmem = self.mem = 36
+        if self.cfg.LOOP_CLOSURE:
+            # loop edges reach MAX_EDGE_AGE frames back into the patch rings
+            self.pmem = min(self.cfg.MAX_EDGE_AGE, self.N)
         self.ht4, self.wd4 = ht // self.RES, wd // self.RES
         self.hi, self.wi = -(-ht // 14), -(-wd // 14)
         self.pg = PatchGraph(self.cfg, self.P, self.DIM, self.DIMF, self.pmem,
                              self.mem, self.ht4, self.wd4, self.device, self.fdtype,
-                             self.gdtype)
+                             self.gdtype, keep_targets=self.cfg.LOOP_CLOSURE)
         self.KWIN = (self.cfg.REMOVAL_WINDOW + 6) * self.M
         self.NW = self.cfg.POSE_WINDOW
         # frame row -> feature ring slot (fmap pyramids; imap/gmap patch rows)
@@ -122,8 +130,11 @@ class SLAM:
         self.generator = torch.Generator().manual_seed(seed)
         self.patch_sampler = patch_sampler or self._random_grid_sampler
         self.tlist = []
-        self.stats = {"updates": 0, "keyframe_removals": 0}
+        self.stats = {"updates": 0, "keyframe_removals": 0, "loop_edges": 0,
+                      "global_ba": 0}
         self._kf_queue = []   # lagged keyframe decisions (frame id, mm)
+        self.last_global_ba = -1000   # n when loop edges were last added
+        self.ran_global_ba = set()    # keyframe counts n that ran a global BA
 
     # ------------------------------------------------------------------
     def _random_grid_sampler(self, counter):
@@ -197,15 +208,41 @@ class SLAM:
         for kk, jj in (self._edges_forw(), self._edges_back()):
             self.pg.append_edges(kk // self.M, jj, kk)
 
+    def _add_loop_edges(self):
+        """Loop-closure candidates every GLOBAL_OPT_FREQ keyframes."""
+        cfg, pg = self.cfg, self.pg
+        if not cfg.LOOP_CLOSURE or pg.n - self.last_global_ba < cfg.GLOBAL_OPT_FREQ:
+            return
+        kk, jj = edges_loop(pg, cfg)
+        if len(kk):
+            self.last_global_ba = pg.n
+            self.stats["loop_edges"] += len(kk)
+            pg.append_edges(kk // self.M, jj, kk)
+
+    def _kwin_for_span(self, span_frames):
+        """Patch-window rows: the default for local edges, a power-of-two
+        number of frames (at least 64, at most the buffer) once loop edges
+        widen the span."""
+        if span_frames <= self.cfg.REMOVAL_WINDOW + 6:
+            return self.KWIN
+        b = 64
+        while b < span_frames + 2:
+            b *= 2
+        return min(b, self.N) * self.M
+
+    def patch_window(self, kk):
+        """(k0, KWIN): the first patch row and the row count of the window
+        that holds every patch in kk. KWIN is chosen first, so clamping k0
+        to the buffer's end never pushes an edge's patch out of it."""
+        M = self.M
+        k0 = int(kk.min()) // M * M
+        KWIN = self._kwin_for_span((int(kk.max()) - k0) // M + 1)
+        return min(k0, self.N * M - KWIN), KWIN
+
     def _run_update(self, ii, jj, kk, net, t0, iterations, mm_pair=None):
         """update_body over edges (ii, jj, kk) and hidden state ``net``."""
         pg, M, dev = self.pg, self.M, self.device
-        # without loop closure every edge's patch lies within the last
-        # REMOVAL_WINDOW + 2 frames, inside the KWIN-row window
-        KWIN = self.KWIN
-        k0 = min(int(kk.min() // M) * M, self.N * M - KWIN)
-        if int(kk.max()) - k0 >= KWIN:
-            raise RuntimeError("patch window overflow")
+        k0, KWIN = self.patch_window(kk)
         aux = build_update_aux(ii, jj, kk, k0, KWIN, M=M)._replace(mask=None)
         ctx_rows = self.pslot_rows[kk // M] * M + kk % M
         jjm = self.fslot_rows[jj]
@@ -221,31 +258,77 @@ class SLAM:
             mi, mj = mm_pair
             mm_sel = dt(np.stack([(ii == mi) & (jj == mj), (ii == mj) & (jj == mi)]),
                         torch.bool)
-        poses, patches_win, net, delta_norm, mm = update_body(
+        poses, patches_win, net, target, weight, delta_norm, mm = update_body(
             self.model, pg.poses_, pg.patches_[k0:k0 + KWIN], pg.intrinsics_,
             pg.imap_, pg.gmap_, pg.fmap1_, pg.fmap2_, net, idx, t0,
             float(self.ht4), float(self.wd4), mm_sel,
             NW=self.NW, KWIN=KWIN, iterations=iterations)
-        return poses, patches_win, k0, net, delta_norm, mm
+        return poses, patches_win, k0, net, (target, weight), delta_norm, mm
 
     def update(self):
         """One update of the active edges; returns the keyframe motion
-        magnitudes (2,) measured on the post-BA poses."""
+        magnitudes (2,) measured on the poses after the local BA. With
+        long-range (loop) edges and no global BA yet at this keyframe count,
+        the update runs no local BA and the global BA follows it."""
         cfg, pg = self.cfg, self.pg
         if pg.E == 0:
             return None
-        if (pg.ii < pg.n - cfg.REMOVAL_WINDOW - 1).any():
-            raise NotImplementedError("long-range edges need the global BA, "
-                                      "which is not in the ported slice")
         self.stats["updates"] += 1
         t0 = max(pg.n - cfg.OPTIMIZATION_WINDOW, 1)
+        long_range = (bool((pg.ii < pg.n - cfg.REMOVAL_WINDOW - 1).any())
+                      and pg.n not in self.ran_global_ba)
         mm_pair = (pg.n - cfg.KEYFRAME_INDEX - 1, pg.n - cfg.KEYFRAME_INDEX + 1)
-        poses, patches_win, k0, net, _, mm = self._run_update(
-            pg.ii, pg.jj, pg.kk, pg.net, t0, 2, mm_pair)
+        poses, patches_win, k0, net, (target, weight), _, mm = self._run_update(
+            pg.ii, pg.jj, pg.kk, pg.net, t0, 0 if long_range else 2, mm_pair)
         pg.poses_ = poses
         pg.patches_[k0:k0 + patches_win.shape[0]] = patches_win    # in place
         pg.net = net
+        if pg.keep_targets:
+            pg.tw = torch.cat([target, weight], 1)
+        if long_range:
+            self._run_global_ba()
         return mm
+
+    # ------------------------------------------------------------------
+    def normalize(self):
+        """Mean inverse depth of the kept patches to 1 and pose 0 to the
+        identity; the delta chain's translations scale with the depths."""
+        pg, n, M = self.pg, self.pg.n, self.M
+        if n == 0:
+            return
+        s = float(pg.patches_[: n * M, 2].mean())
+        if not np.isfinite(s) or s <= 0:
+            return
+        pg.patches_[: n * M, 2] /= s
+        pg.poses_[:n, :3] *= s
+        for t, (t0, dP) in list(pg.delta.items()):
+            dP = dP.clone()
+            dP[:3] *= s
+            pg.delta[t] = (t0, dP)
+        pg.poses_[:n] = se3_mul(pg.poses_[:n], se3_inv(pg.poses_[0])[None])
+
+    def _run_global_ba(self):
+        """Global BA over the active and the inactive edges with their last
+        targets and weights, after normalize(); poses from the oldest active
+        edge's source frame on, and the first K patch rows, are solved."""
+        cfg, pg, M = self.cfg, self.pg, self.M
+        self.stats["global_ba"] += 1
+        n = pg.n
+        idx = build_global_indices(np.concatenate([pg.ii_inac, pg.ii]),
+                                   np.concatenate([pg.jj_inac, pg.jj]),
+                                   np.concatenate([pg.kk_inac, pg.kk]), M)
+        tw = torch.cat([pg.tw_inac, pg.tw])
+        self.normalize()
+        t0 = int(pg.ii.min())
+        buckets = cfg.GLOBAL_POSE_BUCKETS
+        N = next((b for b in buckets if n - t0 <= b), buckets[-1])
+        K = min(next((b for b in buckets if n <= b), buckets[-1]), self.N) * M
+        poses, patches = global_ba_solve(
+            pg.poses_, pg.patches_[:K], pg.intrinsics_[0], tw[:, :2], tw[:, 2:],
+            idx.to(self.device), t0, N=N, M=M, iterations=2)
+        pg.poses_ = poses
+        pg.patches_[:K] = patches
+        self.ran_global_ba.add(n)
 
     def motion_probe(self):
         """Median update delta of the newest frame's patches against the
@@ -271,7 +354,9 @@ class SLAM:
 
     def _kf_apply(self, k):
         """Remove keyframe row k (or nothing for None), then retire the
-        edges that left the optimization window, in one compaction."""
+        edges that left the optimization window, in one compaction. Under
+        loop closure the retired edges go to the inactive store, and loop
+        edges into the last OPTIMIZATION_WINDOW frames stay active."""
         cfg, pg, M = self.cfg, self.pg, self.M
         if k is not None:
             self.stats["keyframe_removals"] += 1
@@ -279,13 +364,17 @@ class SLAM:
             kk_post = np.where(pg.ii > k, pg.kk - M, pg.kk)
             ii_post = np.where(pg.ii > k, pg.ii - 1, pg.ii)
             jj_post = np.where(pg.jj > k, pg.jj - 1, pg.jj)
+            pg.reindex_inactive(k)
             n_after = pg.n - 1
         else:
             drop = np.zeros(pg.E, bool)
             ii_post, jj_post, kk_post = pg.ii, pg.jj, pg.kk
             n_after = pg.n
         retire = (kk_post // M) < n_after - cfg.REMOVAL_WINDOW
-        pg.remove_edges(drop | retire, ii_post, jj_post, kk_post)
+        if cfg.LOOP_CLOSURE:
+            retire &= ~(((jj_post - ii_post) > 30)
+                        & (jj_post > n_after - cfg.OPTIMIZATION_WINDOW))
+        pg.remove_edges(drop | retire, ii_post, jj_post, kk_post, retire & ~drop)
         if k is None:
             return
         n = pg.n
@@ -327,6 +416,7 @@ class SLAM:
             pg.counter += 1
             pg.n += 1
             pg.m += self.M
+            self._add_loop_edges()
             self._append_factors()
             self._insert_frame(image, n, fac, True, intrinsics, pg.counter - 1)
             mm = self.update()
@@ -348,6 +438,7 @@ class SLAM:
                 return "Not keyframe"
         pg.n += 1
         pg.m += self.M
+        self._add_loop_edges()
         self._append_factors()
         if pg.n == 8:
             self.is_initialized = True
@@ -358,9 +449,11 @@ class SLAM:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def terminate(self):
-        """Drain the keyframe queue, run 12 updates, and return the (F, 7)
-        camera-to-world poses of every frame (removed frames interpolated
-        through the delta chain) and their timestamps."""
+        """Drain the keyframe queue, add a last round of loop edges (under
+        loop closure), run 12 updates (each followed by a global BA while
+        loop edges are active), and return the (F, 7) camera-to-world poses
+        of every frame (removed frames interpolated through the delta
+        chain) and their timestamps."""
         pg = self.pg
         if not self.is_initialized:
             warn(f"SLAM terminates without initialization! Frame count: {pg.counter}")
@@ -368,7 +461,12 @@ class SLAM:
             return poses, np.array(self.tlist, np.float64)
         while self._kf_queue:
             self._kf_apply(self._decide_row(*self._kf_queue.pop(0)))
+        if self.cfg.LOOP_CLOSURE:
+            kk, jj = edges_loop(pg, self.cfg)
+            if len(kk):
+                pg.append_edges(kk // self.M, jj, kk)
         for _ in range(12):
+            self.ran_global_ba.discard(pg.n)
             self.update()
 
         poses_np = pg.poses_.cpu()

@@ -24,10 +24,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
      once per update and flash attention 12 times per frame; the corr
      inputs of the last warm-up frame's update are captured
   5  K1 on those captured inputs: parity (bf16 rule above) and times
+  6  the proximity loop-closure path: get_cfg() merged with
+     config/default_cdvslam.yaml, CLASSIC_LOOP_CLOSURE=False,
+     MOTION_PROBE_THR=-1 and KEYFRAME_THRESH=0 (a cut: with random weights
+     every frame would otherwise be removed and n would never reach the 36
+     keyframes loop edges need), the same weights and frames as phase 4,
+     LC_FRAMES frames and terminate(); loop edges and global BAs fire,
+     poses finite, one update and one corr launch per frame, 12 flash
+     attention launches per frame; one global BA's inputs are captured and
+     solved twice (bitwise equal), and the corr inputs of one update that
+     holds loop edges are captured, checked (bf16 rule) and timed
 
 Then a kernels line (a list of per-kernel records: launches on the main
 path, max error, kernel / plain / library times and the roofline bound;
-K1's record adds the phase-5 times as ms_main_path and friends),
+K1's record adds the phase-5 times as ms_main_path and friends and the
+phase-6 times as ms_loop_update and friends; both records add
+launches_loop_path),
 the nvidia-smi line, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -35,9 +47,10 @@ the nvidia-smi line, and the last line
 steady-state frames of the main path timed and 20 more under
 torch.profiler: device busy time and idle share (busy over the untraced
 wall time), launches per frame, the port's two kernels and the top
-kernels by device time; the full table goes to
-DIR/profile_main_path.txt. It prints neither the kernels line nor the ok
-line.
+kernels by device time; then the same for the loop-closure path of
+phase 6 after 100 warm-up frames. The full tables go to
+DIR/profile_main_path.txt and DIR/profile_loop_path.txt. It prints
+neither the kernels line nor the ok line.
 It never imports JAX or the JAX package. Needs one CUDA card.
 """
 import argparse
@@ -55,6 +68,7 @@ F32_FLOPS = 67e12             # float32 outside the tensor cores
 
 # main-path shapes at 480 x 752 (BUFFER ring of 36 frames, 96 patches)
 K_CORR, C, NF, E = 36 * 96, 24, 36, 9600
+LC_FRAMES = 120     # frames of the loop-closure path (phase 6)
 LEVELS = {"level1": (120, 188), "level2": (30, 47)}
 ATTN_SHAPE = (1, 6, 1891, 64)
 
@@ -321,9 +335,7 @@ def phase4(smi):
     ht, wd, WARM, WIN = 480, 752, 60, 100
     cfg = get_cfg()
     cfg.MOTION_PROBE_THR = -1.0
-    rng = np.random.RandomState(0)
-    frames = [(rng.rand(ht, wd, 3) * 255).astype(np.uint8) for _ in range(8)]
-    intr = np.array([458.654, 457.296, 367.215, 248.375], np.float32)
+    frames, intr = _frames(ht, wd)
     kernel = slam_kernels.corr_pyramid_cl
     captured = []
 
@@ -365,6 +377,7 @@ def phase4(smi):
         "attn_12_per_frame": counts["dino_flash_attn"] == 12 * frames_run and win_attn == 12 * WIN,
         "one_update_per_frame": win_updates == WIN,
         "corr_inputs_captured": len(captured) == 1,
+        "no_inactive_store": slam.pg.tw is None and len(slam.pg.ii_inac) == 0,
     }
     ok = all(checks.values())
     emit({"phase": 4, "fps": WIN / win_s, "window_s": win_s, "warmup_s": warm_s,
@@ -377,45 +390,178 @@ def phase4(smi):
     return counts, captured[0]
 
 
-def phase5(args):
-    """K1 on one steady update's own inputs, captured in phase 4."""
+def corr_on_captured(phase, args):
+    """K1 on one update's own inputs, captured from a path's run: phase 5
+    (a steady main-path update) and phase "6-corr" (an update with loop
+    edges)."""
     err, rel, _ = _corr_check(args)
     rec = _corr_record(args)
     ok = rel <= 5e-3
-    emit({"phase": 5, "E": args[3].shape[0], "max_abs": err, "rel": rel,
+    emit({"phase": phase, "E": args[3].shape[0], "max_abs": err, "rel": rel,
           "box_share": rec["box_share"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
           "bound_ms": rec["bound_ms"], "ok": ok})
     if not ok:
-        raise SystemExit("phase 5: corr disagrees with plain on the main path's inputs")
+        raise SystemExit(f"phase {phase}: corr disagrees with plain on the captured inputs")
     return rec
 
 
-def profile_main_path(out_dir):
+def _loop_cfg():
+    """get_cfg() merged with config/default_cdvslam.yaml (its "KEY: value"
+    lines; no yaml module needed), proximity backend only, no motion probe,
+    KEYFRAME_THRESH=0."""
+    from cdvslam_tpu_torch.config import get_cfg
+    preset = (ROOT / "config" / "default_cdvslam.yaml").read_text().splitlines()
+    cfg = get_cfg().merge_from_list(
+        [t.strip() for ln in preset if ":" in ln for t in ln.split(":", 1)])
+    cfg.CLASSIC_LOOP_CLOSURE = False
+    cfg.MOTION_PROBE_THR = -1.0
+    cfg.KEYFRAME_THRESH = 0.0
+    return cfg
+
+
+def _frames(ht=480, wd=752):
+    """The 8 seeded random frames every path cycles, and the intrinsics."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    return ([(rng.rand(ht, wd, 3) * 255).astype(np.uint8) for _ in range(8)],
+            np.array([458.654, 457.296, 367.215, 248.375], np.float32))
+
+
+def phase6(smi):
+    """The proximity loop-closure path at 480 x 752; returns the launch
+    counts of its run and the corr inputs of one update with loop edges."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from cdvslam_tpu_torch.config import get_cfg
+    from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
     from cdvslam_tpu_torch.slam import SLAM
-    ht, wd, WARM, WIN = 480, 752, 60, 20
-    cfg = get_cfg()
-    cfg.MOTION_PROBE_THR = -1.0
-    rng = np.random.RandomState(0)
-    frames = [(rng.rand(ht, wd, 3) * 255).astype(np.uint8) for _ in range(8)]
-    intr = np.array([458.654, 457.296, 367.215, 248.375], np.float32)
-    slam = SLAM(cfg, network="cdv", ht=ht, wd=wd, seed=0)
-    for f in range(WARM):
-        slam(f, frames[f % 8], intr)
-    torch.cuda.synchronize()
+    from cdvslam_tpu_torch.slam import kernels as slam_kernels
+    from cdvslam_tpu_torch.slam import runtime
+    cfg = _loop_cfg()
+    frames, intr = _frames()
+    slam = SLAM(cfg, network="cdv", ht=480, wd=752, seed=0)
+
+    kernel, solve, run_gba = slam_kernels.corr_pyramid_cl, runtime.global_ba_solve, slam._run_global_ba
+    build, loop = runtime.build_global_indices, runtime.edges_loop
+    captured, gba_ms, index_ms, detections = {}, [], [], []
+
+    def capture_corr(*args):
+        pg = slam.pg
+        if "corr" not in captured and (pg.ii < pg.n - cfg.REMOVAL_WINDOW - 1).any():
+            captured["corr"] = tuple(a.clone() for a in args[:6])
+        return kernel(*args)
+
+    def capture_solve(*args, **kwargs):       # keeps the run's last global BA
+        captured["gba"] = ([a.clone() if torch.is_tensor(a) else a for a in args],
+                           dict(kwargs))
+        return solve(*args, **kwargs)
+
+    def timed_gba():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run_gba()
+        torch.cuda.synchronize()
+        gba_ms.append((time.perf_counter() - t) * 1e3)
+
+    def timed_build(*args):                    # host only: no sync needed
+        t = time.perf_counter()
+        out = build(*args)
+        index_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def counted_loop(*args):
+        kk, jj = loop(*args)
+        if len(kk):
+            detections.append(len(kk))
+        return kk, jj
+
+    slam_kernels.corr_pyramid_cl, runtime.global_ba_solve = capture_corr, capture_solve
+    runtime.build_global_indices, runtime.edges_loop = timed_build, counted_loop
+    slam._run_global_ba = timed_gba
+    torch.cuda.reset_peak_memory_stats()
+    corr_cuda.LAUNCHES.reset()
+    flash_attn.LAUNCHES.reset()
+    frame_ms, with_gba, peak_E = [], [], 0
+    try:
+        for f in range(LC_FRAMES):
+            g0 = slam.stats["global_ba"]
+            t = time.perf_counter()
+            slam(f, frames[f % 8], intr)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t) * 1e3)
+            with_gba.append(slam.stats["global_ba"] > g0)
+            peak_E = max(peak_E, slam.pg.E)
+        runtime.global_ba_solve, runtime.edges_loop = solve, loop   # the run's only
+        run_updates, run_gbas = slam.stats["updates"], slam.stats["global_ba"]
+        poses, _ = slam.terminate()
+        torch.cuda.synchronize()
+    finally:
+        slam_kernels.corr_pyramid_cl, runtime.global_ba_solve = kernel, solve
+        runtime.build_global_indices, runtime.edges_loop = build, loop
+    counts = {"corr": corr_cuda.LAUNCHES.count, "dino_flash_attn": flash_attn.LAUNCHES.count}
+
+    # the captured global BA, solved twice
+    same, gba_solve_ms = False, None
+    if "gba" in captured:
+        args, kwargs = captured["gba"]
+        runs = [solve(*args, **kwargs) for _ in range(2)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+        gba_solve_ms = cuda_time(lambda: solve(*args, **kwargs), 5, warmup=1)
+        gba_shape = {"E": int(args[5].ii.shape[0]), "G": int(args[5].g_i.shape[0]),
+                     "C": int(args[5].combo_g1.shape[0]), "N": kwargs["N"],
+                     "K": int(args[1].shape[0])}
+    steady = [(ms, g) for f, (ms, g) in enumerate(zip(frame_ms, with_gba)) if f >= 8]
+    fps = {name: (len(sel) / (sum(sel) / 1e3) if sel else None, len(sel)) for name, sel in (
+        ("with_global_ba", [ms for ms, g in steady if g]),
+        ("without_global_ba", [ms for ms, g in steady if not g]))}
+    checks = {
+        "loop_edges": slam.stats["loop_edges"] > 0,
+        "global_ba": slam.stats["global_ba"] > 0,
+        "poses_shape": list(poses.shape) == [LC_FRAMES, 7],
+        "poses_finite": bool(np.isfinite(poses).all()),
+        "corr_1_per_update": counts["corr"] == slam.stats["updates"],
+        "one_update_per_frame": run_updates == 12 + (LC_FRAMES - 8),
+        "attn_12_per_frame": counts["dino_flash_attn"] == 12 * LC_FRAMES,
+        "global_ba_bitwise_equal": same,
+        "loop_corr_inputs_captured": "corr" in captured,
+    }
+    ok = all(checks.values())
+    emit({"phase": 6, "frames": LC_FRAMES, "keyframes": slam.pg.n,
+          "loop_edges": slam.stats["loop_edges"], "global_ba": slam.stats["global_ba"],
+          "global_ba_in_run": run_gbas, "updates": slam.stats["updates"],
+          "loop_detections": len(detections), "loop_edges_per_detection": detections,
+          "peak_active_edges": peak_E, "inactive_edges": len(slam.pg.ii_inac),
+          "global_ba_ms_median": statistics.median(gba_ms) if gba_ms else None,
+          "global_ba_ms_max": max(gba_ms) if gba_ms else None,
+          "global_ba_solve_ms": gba_solve_ms,
+          "index_build_ms_median": statistics.median(index_ms) if index_ms else None,
+          "global_ba_captured": gba_shape if "gba" in captured else None,
+          "fps_frames": {k: {"fps": v, "frames": n} for k, (v, n) in fps.items()},
+          "launches": counts, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "checks": checks, "card": smi,
+          "cuts": {"KEYFRAME_THRESH": 0.0, "weights": "random (seed 0)",
+                   "frames": LC_FRAMES}, "ok": ok})
+    if not ok:
+        raise SystemExit(f"phase 6: loop-closure path checks failed: {checks}")
+    return counts, captured["corr"]
+
+
+def _profile_window(slam, frames, intr, start, win, table_path):
+    """win frames timed, then win more under torch.profiler: device busy
+    time and idle share (busy over the untraced wall time), launches per
+    frame, the port's two kernels and the top kernels and host ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     # the same number of frames unprofiled first: the profiler's own host
     # cost inflates the traced window's wall time
     t0 = time.perf_counter()
-    for f in range(WARM, WARM + WIN):
+    for f in range(start, start + win):
         slam(f, frames[f % 8], intr)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for f in range(WARM + WIN, WARM + 2 * WIN):
+        for f in range(start + win, start + 2 * win):
             slam(f, frames[f % 8], intr)
         torch.cuda.synchronize()
     traced_ms = (time.perf_counter() - t0) * 1e3
@@ -425,31 +571,54 @@ def profile_main_path(out_dir):
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     ours = {name: {"ms_per_frame": sum(e.self_device_time_total for e in kernels
-                                       if name in e.key) / 1e3 / WIN,
-                   "calls_per_frame": sum(e.count for e in kernels if name in e.key) / WIN}
+                                       if name in e.key) / 1e3 / win,
+                   "calls_per_frame": sum(e.count for e in kernels if name in e.key) / win}
             for name in ("corr_pyramid_kernel", "flash_qkv_kernel")}
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "profile_main_path.txt").write_text(events.table(
-        sort_by="self_device_time_total", row_limit=60))
+    table_path.write_text(events.table(sort_by="self_device_time_total", row_limit=60))
     ops = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA),
                  key=lambda e: -e.self_cpu_time_total)[:8]
-    emit({"phase": "profile", "frames": WIN, "wall_ms_per_frame": wall_ms / WIN,
-          "traced_wall_ms_per_frame": traced_ms / WIN,
-          "device_busy_ms_per_frame": busy_ms / WIN,
-          "device_idle_share": 1.0 - busy_ms / wall_ms,
-          "kernel_launches_per_frame": launches / WIN,
-          "port_kernels": ours,
-          "top_kernels_ms_per_frame": {e.key[:60]: e.self_device_time_total / 1e3 / WIN
-                                       for e in top},
-          "top_host_ops_ms_per_frame": {e.key[:60]: e.self_cpu_time_total / 1e3 / WIN
-                                        for e in ops}})
+    return {"frames": win, "wall_ms_per_frame": wall_ms / win,
+            "traced_wall_ms_per_frame": traced_ms / win,
+            "device_busy_ms_per_frame": busy_ms / win,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "kernel_launches_per_frame": launches / win,
+            "port_kernels": ours,
+            "top_kernels_ms_per_frame": {e.key[:60]: e.self_device_time_total / 1e3 / win
+                                         for e in top},
+            "top_host_ops_ms_per_frame": {e.key[:60]: e.self_cpu_time_total / 1e3 / win
+                                          for e in ops}}
+
+
+def profile_paths(out_dir):
+    """The main path (60 warm-up frames) and the loop-closure path (100
+    warm-up frames: about 78 keyframes past the first loop detection), 20
+    frames timed and 20 traced each."""
+    import torch
+    from cdvslam_tpu_torch.config import get_cfg
+    from cdvslam_tpu_torch.slam import SLAM
+    frames, intr = _frames()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    main_cfg = get_cfg()
+    main_cfg.MOTION_PROBE_THR = -1.0
+    for path, cfg, warm in (("main", main_cfg, 60), ("loop", _loop_cfg(), 100)):
+        slam = SLAM(cfg, network="cdv", ht=480, wd=752, seed=0)
+        for f in range(warm):
+            slam(f, frames[f % 8], intr)
+        torch.cuda.synchronize()
+        g0 = slam.stats["global_ba"]
+        rec = _profile_window(slam, frames, intr, warm, 20,
+                              out_dir / f"profile_{path}_path.txt")
+        emit({"phase": "profile", "path": path, **rec, "edges": slam.pg.E,
+              "keyframes": slam.pg.n, "global_ba_in_windows": slam.stats["global_ba"] - g0})
+        del slam
+        torch.cuda.empty_cache()
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", type=Path,
-                    help="run phase 0 and the main-path profile only; the table "
-                         "goes to DIR/profile_main_path.txt")
+                    help="run phase 0 and the profiles of the main and the loop-closure "
+                         "path only; the tables go to DIR/profile_{main,loop}_path.txt")
     args = ap.parse_args()
     if not (ROOT / "cdvslam_tpu_torch").is_dir():
         print("chip_smoke.py: cdvslam_tpu_torch/ is not beside this script", file=sys.stderr)
@@ -463,13 +632,15 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     smi = phase0()
     if args.profile is not None:
-        profile_main_path(ROOT / args.profile)
+        profile_paths(ROOT / args.profile)
         return 0
     corr_rec = phase1()
     attn_rec = phase2()
     phase3()
     counts, captured = phase4(smi)
-    main_rec = phase5(captured)
+    main_rec = corr_on_captured(5, captured)
+    lc_counts, lc_captured = phase6(smi)
+    loop_rec = corr_on_captured("6-corr", lc_captured)
 
     ops_ms, bytes_ms = attn_rec["bound"]
     kernels = [
@@ -484,7 +655,12 @@ def main():
          "bytes": corr_rec["bytes"], "box_share": corr_rec["box_share"],
          "ms_main_path": main_rec["ms"], "plain_ms_main_path": main_rec["plain_ms"],
          "bound_ms_main_path": main_rec["bound_ms"],
-         "box_share_main_path": main_rec["box_share"]},
+         "box_share_main_path": main_rec["box_share"],
+         "launches_loop_path": lc_counts["corr"],
+         "E_loop_update": lc_captured[3].shape[0], "ms_loop_update": loop_rec["ms"],
+         "plain_ms_loop_update": loop_rec["plain_ms"],
+         "bound_ms_loop_update": loop_rec["bound_ms"],
+         "box_share_loop_update": loop_rec["box_share"]},
         {"name": "dino_flash_attn", "route": "cuda",
          "source": "cdvslam_tpu_torch/csrc/flash_attn.cu",
          "replaces": "cdvslam_tpu/models/dinov2.py:53",
@@ -493,6 +669,7 @@ def main():
          "bound_ms": max(ops_ms, bytes_ms),
          "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
          "library_ms": attn_rec["library_ms"],
+         "launches_loop_path": lc_counts["dino_flash_attn"],
          "per": "one call, packed qkv (1, 1891, 1152) bf16 -> (1, 1891, 384); ms and "
                 "library_ms are medians of 5 alternating rounds of 20 calls",
          "rounds": attn_rec["rounds"]},

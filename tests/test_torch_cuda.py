@@ -6,11 +6,17 @@ runs the same comparisons at the main-path shapes). Tolerances: corr f32
 1e-4 absolute (f32 dots of 24 products summed in another order); corr
 bf16 5e-3 of max |plain| against the plain version evaluated in f32 on the
 same bf16 values; flash attention bf16 max abs 2e-2 and relative Frobenius
-1e-2 (bf16 probabilities against bf16 softmax then matmul).
+1e-2 (bf16 probabilities against bf16 softmax then matmul); global BA on
+the card against the CPU port on the same float32 inputs 1e-4 on poses and
+1e-3 on inverse depths (cuBLAS and the CPU sum in other orders), and two
+solves on the card bitwise equal.
 """
 import pytest
 import torch
 
+from cdvslam_tpu_torch.ba.global_ba import build_global_indices, global_ba_solve
+from cdvslam_tpu_torch.geom import transform
+from cdvslam_tpu_torch.lie import SE3, se3_exp, se3_mul
 from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
 from cdvslam_tpu_torch.ops.corr import corr_pyramid_plain
 
@@ -116,3 +122,46 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     gmap20, f1, f2, coords, ii, jj = _corr_case(card, torch.bfloat16, C=20)
     with pytest.raises(ValueError):
         corr_cuda.corr_pyramid_cl(gmap20, f1, f2, coords, ii, jj)
+
+
+def _global_problem(NF=40, M=16, t0=2):
+    """Frames on a forward walk; edges to the 3 frames on either side and
+    from frames 0-5 to frames 34-39 (loop pairs); targets from the true
+    poses plus 0.3 px noise; poses and depths perturbed."""
+    g = torch.Generator().manual_seed(3)
+    xi = 0.02 * torch.randn((NF, 6), generator=g)
+    xi[:, 2] += 0.05 * torch.arange(NF)
+    gt = se3_exp(xi)
+    K = NF * M
+    patches = torch.zeros((K, 3, 3, 3))
+    patches[:, 0] = (torch.rand(K, generator=g) * 180)[:, None, None]
+    patches[:, 1] = (torch.rand(K, generator=g) * 110)[:, None, None]
+    patches[:, 2] = (0.5 + torch.rand(K, generator=g))[:, None, None]
+    intr = torch.tensor([115.0, 115.0, 94.0, 60.0])
+    pairs = [(i, j) for i in range(NF) for j in range(NF) if 0 < abs(i - j) <= 3]
+    pairs += [(i, j) for i in range(6) for j in range(NF - 6, NF)]
+    pairs = torch.tensor(pairs)
+    ii = pairs[:, 0].repeat_interleave(M)
+    jj = pairs[:, 1].repeat_interleave(M)
+    kk = ii * M + torch.arange(M).repeat(len(pairs))
+    coords = transform(SE3(gt[None]), patches[None], intr.expand(1, NF, 4), ii, jj, kk)
+    target = coords[0, :, 1, 1] + 0.3 * torch.randn((len(ii), 2), generator=g)
+    weight = torch.rand((len(ii), 2), generator=g)
+    pert = se3_exp(0.01 * torch.randn((NF, 6), generator=g))
+    pert[:t0] = torch.tensor([0, 0, 0, 0, 0, 0, 1.0])
+    noisy = patches.clone()
+    noisy[:, 2] = (noisy[:, 2] + 0.1 * torch.randn((K, 1, 1), generator=g)).clamp(min=0.1)
+    idx = build_global_indices(ii.numpy(), jj.numpy(), kk.numpy(), M)
+    return (se3_mul(pert, gt), noisy, intr, target, weight), idx, t0, NF - t0, M
+
+
+def test_global_ba_on_the_card_matches_the_cpu_and_repeats(card):
+    tensors, idx, t0, N, M = _global_problem()
+    want = global_ba_solve(*tensors, idx.to("cpu"), t0, N=N, M=M, iterations=2)
+    args = [t.to(card) for t in tensors]
+    runs = [global_ba_solve(*args, idx.to(card), t0, N=N, M=M, iterations=2)
+            for _ in range(2)]
+    assert (want[0] - tensors[0]).abs().max() > 1e-3       # the solve moved the poses
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    assert (runs[0][0].cpu() - want[0]).abs().max().item() <= 1e-4
+    assert (runs[0][1].cpu() - want[1]).abs().max().item() <= 1e-3

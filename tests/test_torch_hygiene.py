@@ -38,7 +38,7 @@ def test_slam_defaults_to_the_card_and_raises_without_one(monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    {"network": "dpv"}, {"viz": True}, {"LOOP_CLOSURE": True},
+    {"network": "dpv"}, {"viz": True}, {"LOOP_CLOSURE": True, "CLASSIC_LOOP_CLOSURE": True},
     {"CLASSIC_LOOP_CLOSURE": True}, {"SEG_HEAD": "random"}, {"DEPTH_HEAD": "dpt"},
     {"FILTER_DYNAMIC_CLASS": True}, {"CENTROID_SEL_STRAT": "SCORE"},
     {"CENTROID_SEL_STRAT": "RANDOM"},

@@ -34,7 +34,7 @@ INTR = np.array([80.0, 80.0, 48.0, 32.0], np.float32)
 D_HEAD_SCALE = 0.5
 
 
-def _cfg(make, keyframe_thresh, motion_probe_thr):
+def _cfg(make, keyframe_thresh, motion_probe_thr, overrides=None):
     cfg = make()
     cfg.MIXED_PRECISION = False
     cfg.PATCHES_PER_FRAME = M
@@ -42,6 +42,7 @@ def _cfg(make, keyframe_thresh, motion_probe_thr):
     cfg.MOTION_PROBE_THR = motion_probe_thr
     if keyframe_thresh is not None:
         cfg.KEYFRAME_THRESH = keyframe_thresh
+    cfg.update(overrides or {})
     return cfg
 
 
@@ -62,29 +63,31 @@ def jax_patch_sampler():
     return sampler
 
 
-def port_slam(params, keyframe_thresh=None, motion_probe_thr=-1.0, dtype=None):
+def port_slam(params, keyframe_thresh=None, motion_probe_thr=-1.0, dtype=None,
+              overrides=None):
     """The port's SLAM on the CPU with the flax ``params`` and the JAX draws."""
-    return SLAM(_cfg(get_cfg, keyframe_thresh, motion_probe_thr), "cdv", ht=H, wd=W,
-                device="cpu", state_dict=load_flax_params(params),
+    return SLAM(_cfg(get_cfg, keyframe_thresh, motion_probe_thr, overrides), "cdv",
+                ht=H, wd=W, device="cpu", state_dict=load_flax_params(params),
                 patch_sampler=jax_patch_sampler(), dtype=dtype)
 
 
-def frames():
+def frames(n=FRAMES):
     rng = np.random.RandomState(0)
-    return [(rng.rand(H, W, 3) * 255).astype(np.uint8) for _ in range(FRAMES)]
+    return [(rng.rand(H, W, 3) * 255).astype(np.uint8) for _ in range(n)]
 
 
-def drive_port(slam):
-    """Feed the frames to a port SLAM; returns terminate()'s (poses, tstamps)."""
+def drive_port(slam, n=FRAMES):
+    """Feed n frames to a port SLAM; returns terminate()'s (poses, tstamps)."""
     with torch.no_grad():
-        for f, img in enumerate(frames()):
+        for f, img in enumerate(frames(n)):
             slam(f, img, INTR)
         return slam.terminate()
 
 
 def run_pair(monkeypatch, keyframe_thresh=None, alloc_slot_first=True,
-             motion_probe_thr=-1.0, probes=None, d_head_scale=D_HEAD_SCALE):
-    """Run both SLAMs over FRAMES random frames and terminate both.
+             motion_probe_thr=-1.0, probes=None, d_head_scale=D_HEAD_SCALE,
+             overrides=None, nframes=FRAMES):
+    """Run both SLAMs over ``nframes`` random frames and terminate both.
 
     ``alloc_slot_first``: the JAX fused steady-state step builds the
     update's index rows before it allocates the new frame's feature slot
@@ -94,11 +97,12 @@ def run_pair(monkeypatch, keyframe_thresh=None, alloc_slot_first=True,
     ``probes``: a dict that collects each side's motion-probe values under
     "jax" and "port".
     ``d_head_scale``: factor on the delta head's weights, on both sides.
+    ``overrides``: further config values, on both sides.
     Returns (jax_slam, port_slam, (jax poses, tstamps), (port poses, tstamps));
     ``jax_slam.params`` holds the weights both sides ran.
     """
     monkeypatch.setenv("BA_ASSEMBLY", "scatter")
-    js = JaxSLAM(_cfg(jax_get_cfg, keyframe_thresh, motion_probe_thr), "cdv",
+    js = JaxSLAM(_cfg(jax_get_cfg, keyframe_thresh, motion_probe_thr, overrides), "cdv",
                  ht=H, wd=W)
     params = jax.tree_util.tree_map(np.asarray, js.params)
     head = params["params"]["update_op"]["heads"]["d"]
@@ -113,7 +117,7 @@ def run_pair(monkeypatch, keyframe_thresh=None, alloc_slot_first=True,
             return fused(*args, **kwargs)
         monkeypatch.setattr(js, "_fused_frame_update", fused_alloc_first)
 
-    ts = port_slam(params, keyframe_thresh, motion_probe_thr)
+    ts = port_slam(params, keyframe_thresh, motion_probe_thr, overrides=overrides)
     if probes is not None:
         for side, slam in (("jax", js), ("port", ts)):
             probe = slam.motion_probe
@@ -122,33 +126,37 @@ def run_pair(monkeypatch, keyframe_thresh=None, alloc_slot_first=True,
                 log.append(probe())
                 return log[-1]
             monkeypatch.setattr(slam, "motion_probe", logged)
-    for f, img in enumerate(frames()):
+    for f, img in enumerate(frames(nframes)):
         js(f, img, INTR)
     jax_out = js.terminate()
-    return js, ts, jax_out, drive_port(ts)
+    return js, ts, jax_out, drive_port(ts, nframes)
 
 
-def check_against_float64(monkeypatch, keyframe_thresh):
-    """The full-scale delta head's JAX and port float32 runs, held to a
-    float64 run of the port (networks and geometry) on the same frames.
+def check_against_float64(monkeypatch, keyframe_thresh, d_head_scale=1.0, overrides=None,
+                          nframes=FRAMES):
+    """The JAX and port float32 runs (full-scale delta head unless
+    ``d_head_scale`` says otherwise), held to a float64 run of the port
+    (networks and geometry) on the same frames.
 
     Tolerances, per pose component after terminate():
     - every run makes the same discrete decisions: keyframe removals, kept
-      frames, updates and timestamps are equal;
+      frames, updates, loop edges, global BAs and timestamps are equal;
     - the JAX float32 run is no farther from the float64 run than 3x the
       port float32 run is: rounding in the port's own code moves the result
       as far as the other framework does, so the gap between the two is
       reassociation and not a difference in what is computed;
     - the two float32 runs agree within 3e-3 and each lies within 5e-3 of
       the float64 run.
-    Returns the three distances (jax-port, jax-f64, port-f64).
+    Returns (jax slam, port slam, float64 port slam, the three distances
+    (jax-port, jax-f64, port-f64)).
     """
     js, ts, (jp, jt), (tp, tt) = run_pair(monkeypatch, keyframe_thresh=keyframe_thresh,
-                                          d_head_scale=1.0)
-    ws = port_slam(js.params, keyframe_thresh, dtype=torch.float64)
-    wp, wt = drive_port(ws)
-    assert wp.dtype == np.float64 and wp.shape == (FRAMES, 7)
-    for key in ("keyframe_removals", "updates"):
+                                          d_head_scale=d_head_scale, overrides=overrides,
+                                          nframes=nframes)
+    ws = port_slam(js.params, keyframe_thresh, dtype=torch.float64, overrides=overrides)
+    wp, wt = drive_port(ws, nframes)
+    assert wp.dtype == np.float64 and wp.shape == (nframes, 7)
+    for key in ("keyframe_removals", "updates", "loop_edges", "global_ba"):
         assert js.stats[key] == ts.stats[key] == ws.stats[key], key
     assert js.pg.n == ts.pg.n == ws.pg.n
     np.testing.assert_array_equal(tt, jt)
@@ -158,4 +166,4 @@ def check_against_float64(monkeypatch, keyframe_thresh):
     assert jax_64 <= 3 * port_64, gaps
     assert jax_port <= 3e-3, gaps
     assert max(jax_64, port_64) <= 5e-3, gaps
-    return gaps
+    return js, ts, ws, gaps
