@@ -6,7 +6,8 @@ context features are DINOv2 ViT-S/14 tokens of the last tapped block
 linear-attention variant with learnable-Fourier rotary encodings.
 
 The module tree follows the reference's state dict: ``patchify.dino.*``,
-``patchify.xfeat.*``, ``update.*`` and ``posenc.Wr``. ``net.update(...)``
+``patchify.xfeat.*``, ``update.*`` and ``posenc.Wr``. The score head
+(``compute_score``) is not built: the JAX runtime does not build it either. ``net.update(...)``
 and ``net.posenc(...)`` call those submodules, as the JAX package's
 ``CDVNet.update`` and ``CDVNet.posenc`` methods do.
 """
@@ -53,13 +54,21 @@ class CDVNet(nn.Module):
         of the last tap -> token map (N, 384, h, w) scaled by 1/4. Also
         returns the normalized tokens (N, h*w, 384), the raw last-layer
         tokens and cls, and no score map."""
+        return self.features_i_taps(images)[:5]
+
+    def features_i_taps(self, images):
+        """``features_i``'s five outputs plus the four raw (pre-norm) taps
+        for the DPT depth head: a list of (token map (N, h, w, 384), cls
+        (N, 384)) pairs in tap order. DINO runs once."""
         imgs = pad_to_multiple(images, SCALEI)
         N, Hp, Wp, _ = imgs.shape
-        last = self.patchify.dino(imgs.permute(0, 3, 1, 2), taps=(2, 5, 8, 11))[-1]
+        taps = self.patchify.dino(imgs.permute(0, 3, 1, 2), taps=(2, 5, 8, 11))
+        last = taps[-1]
         tokens_norm = self.patchify.dino.norm(last)[:, 1:]
         h, w = Hp // SCALEI, Wp // SCALEI
         tmap = tokens_norm.reshape(N, h, w, DIMI).permute(0, 3, 1, 2) / 4.0
-        return tmap, tokens_norm, last[:, 1:], last[:, 0], None
+        tap_pairs = [(t[:, 1:].reshape(N, h, w, DIMI), t[:, 0]) for t in taps]
+        return tmap, tokens_norm, last[:, 1:], last[:, 0], None, tap_pairs
 
     def adapt(self, ictx):
         """The default network has no DINO adapter."""

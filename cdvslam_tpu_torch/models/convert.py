@@ -5,10 +5,14 @@ numpy arrays, ``{"params": {"xfeat_f", "dino", "update_op", "posenc_mod"},
 "batch_stats": {"xfeat_f": ...}}``, and returns a ``CDVNet`` state dict
 under the reference's torch names, the inverse of the JAX package's
 ``convert_update_cdv`` / ``convert_dino`` / ``convert_xfeat``.
+``seg_head_state`` / ``depth_head_state`` / ``dpt_head_state`` do the same
+for the JAX SLAM's ``seg_params`` / ``depth_params``, the inverses of
+``load_seg_head`` / ``load_depth_head`` / ``load_dpt_head``.
 
 Conventions: Dense kernel (in, out) -> Linear weight (out, in); Conv
 kernel (kh, kw, in, out) -> (out, in, kh, kw); LayerNorm scale -> weight;
-BatchNorm mean / var -> running_mean / running_var.
+BatchNorm mean / var -> running_mean / running_var; ConvTranspose kernel
+(kh, kw, in, out) -> (in, out, kh, kw) flipped in both spatial axes.
 """
 from __future__ import annotations
 
@@ -117,4 +121,56 @@ def load_flax_params(tree) -> dict:
     sd.update(dino_state(params["dino"]))
     sd.update(update_cdv_state(params["update_op"]))
     _lin(sd, "posenc.Wr", params["posenc_mod"]["Dense_0"])
+    return sd
+
+
+def seg_head_state(variables) -> dict:
+    """The JAX SLAM's ``seg_params`` (flax ``SegHeadFlatten``) -> a
+    ``heads.SegHeadFlatten`` state dict; inverse of the JAX package's
+    ``load_seg_head``."""
+    p, bn = variables["params"], variables["batch_stats"]["bn"]
+    sd = {"bn.weight": _t(p["bn"]["scale"]), "bn.bias": _t(p["bn"]["bias"]),
+          "bn.running_mean": _t(bn["mean"]), "bn.running_var": _t(bn["var"]),
+          "bn.num_batches_tracked": torch.tensor(0)}
+    _lin(sd, "linear", p["linear"])
+    return sd
+
+
+def depth_head_state(variables) -> dict:
+    """The JAX SLAM's linear ``depth_params`` -> a ``heads.DepthHeadFlatten``
+    state dict; inverse of ``load_depth_head``."""
+    sd = {}
+    _lin(sd, "linear", variables["params"]["linear"])
+    return sd
+
+
+def _conv_t(sd, name, p):
+    """flax ConvTranspose kernel (kh, kw, I, O) -> torch ConvTranspose2d
+    weight (I, O, kh, kw), spatially flipped back (the JAX loader's
+    ``_convT`` flips it)."""
+    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def dpt_head_state(variables) -> dict:
+    """The JAX SLAM's DPT ``depth_params`` (flax ``DPTHead``) -> a
+    ``dpt.DPTHead`` state dict under the reference's names without
+    ``decode_head.``; inverse of ``load_dpt_head``."""
+    p, sd = variables["params"], {}
+    ra, r = "reassemble_blocks.", p["reassemble"]
+    for i in range(4):
+        _lin(sd, f"{ra}readout_projects.{i}.0", r[f"readout{i}"])
+        _conv(sd, f"{ra}projects.{i}.conv", r[f"project{i}"])
+        _conv(sd, f"convs.{i}.conv", p[f"conv{i}"])
+        fu, fb = p[f"fusion{i}"], f"fusion_blocks.{i}."
+        _conv(sd, f"{fb}project.conv", fu["project"])
+        for unit in ("res1", "res2")[i == 0:]:
+            for c in ("conv1", "conv2"):
+                _conv(sd, f"{fb}res_conv_unit{unit[-1]}.{c}.conv", fu[unit][c])
+    _conv_t(sd, f"{ra}resize_layers.0", r["up4"])
+    _conv_t(sd, f"{ra}resize_layers.1", r["up2"])
+    _conv(sd, f"{ra}resize_layers.3", r["down2"])
+    _conv(sd, "project.conv", p["project"])
+    for k in (0, 2, 4):
+        _conv(sd, f"conv_depth.head.{k}", p[f"head{k}"])
     return sd

@@ -3,6 +3,8 @@
 ``update_body`` is one update: reproject the window's patches, correlate
 at two pyramid levels (the corr kernel), run the update operator, two
 Gauss-Newton BA iterations, and the flow magnitude for the keyframe test.
+``dynamic_class_weight`` and ``scale_adjustment`` are the seg and depth
+heads' hooks into the update.
 """
 from __future__ import annotations
 
@@ -39,14 +41,17 @@ def corr_features(gmap_buf, fmap1, fmap2, coords, gmap_idx, jjm, radius=3):
 
 def update_body(model, poses, patches_win, intr_full, imap_buf, gmap_buf,
                 fmap1, fmap2, net, idx: EdgeIndex, t0: int, ht4: float,
-                wd4: float, mm_sel=None, *, NW: int, KWIN: int, iterations: int):
+                wd4: float, mm_sel=None, weight_mul=None, score_win=None, *,
+                NW: int, KWIN: int, iterations: int):
     """One update over the patch window ``patches_win`` (KWIN rows).
 
     Returns (poses, patches_win, net, target, weight, delta_norm, mm):
     target (E, 2) = center + the update's delta and weight (E, 2) are what
-    the BA solved with; mm is the mean flow magnitude over the edges of each
-    of mm_sel's two (E,) masks, computed on the post-BA poses, or None
-    without mm_sel. With ``iterations`` 0 no BA runs.
+    the BA solved with: the network's weight times ``weight_mul`` (E, 2)
+    and times the edge's patch score ``score_win[kk_local]`` (the window's
+    rows), each where given. mm is the mean flow magnitude over the edges
+    of each of mm_sel's two (E,) masks, computed on the post-BA poses, or
+    None without mm_sel. With ``iterations`` 0 no BA runs.
     """
     P = patches_win.shape[-1]
     ii, jj, kk = idx.ii, idx.jj, idx.kk_local
@@ -67,6 +72,10 @@ def update_body(model, poses, patches_win, intr_full, imap_buf, gmap_buf,
     center = coords[..., P // 2, P // 2, :]
     target = center[0] + d[0].to(poses.dtype)
     weight = w[0].to(poses.dtype)
+    if weight_mul is not None:
+        weight = weight * weight_mul
+    if score_win is not None:
+        weight = weight * score_win[kk][:, None]
     if iterations:
         poses, patches_win = ba_solve(
             poses, patches_win, intr_full[0], target, weight, ii, jj, kk, None,
@@ -93,3 +102,39 @@ def motion_extrapolate(poses, n: int, fac: float, damping: float):
     P2 = poses[n - 2]
     xi = damping * fac * se3_log(se3_mul(P1, se3_inv(P2)))
     return se3_mul(se3_exp(xi), P1)
+
+
+def dynamic_class_weight(seg, filt_index, kk):
+    """(E, 2) weight factors: 1e-4 where patch kk's seg class (seg (N, M)
+    uint8, patch rows flattened) is in ``filt_index``, else 1."""
+    hit = torch.isin(seg.reshape(-1)[kk].long(), filt_index)
+    mul = torch.where(hit, 1e-4, 1.0).to(torch.float32)
+    return torch.stack([mul, mul], -1)
+
+
+def scale_adjustment(poses, patches, scale, t0: int, n: int, w: float, M: int):
+    """Pull the window's scale toward the depth head's anchor, in place.
+
+    Over frames [t0, n): rate = 1 + w (anchor / s - 1), with s the mean
+    centre inverse depth of the window's patches and anchor the mean of
+    ``scale`` over the window's frames; rate is 1 when the rotation between
+    poses n-2 and n-1 is under 0.04 rad. The window's inverse depths are
+    multiplied by rate and its camera centres move toward frame t0-1's by
+    (1 - 1/rate). The window's poses are rebuilt from their inverses even
+    when the gate is shut, as the JAX package does. Returns (poses,
+    patches, rate) with rate a 0-d tensor, never read on the host here.
+    """
+    P = patches.shape[-1]
+    angle = torch.linalg.norm(se3_log(se3_mul(poses[max(n - 2, 0)],
+                                              se3_inv(poses[max(n - 1, 0)])))[3:])
+    win = patches[t0 * M:n * M]
+    s = win[:, 2, P // 2, P // 2].sum() / max(win.shape[0], 1)
+    anchor = scale[t0:n].sum() / max(n - t0, 1)
+    rate = 1.0 + w * (anchor / s.clamp(min=1e-8) - 1.0)
+    rate = torch.where(angle < 0.04, torch.ones_like(rate), rate)
+    win[:, 2] *= rate
+    inv = se3_inv(poses[t0:n])
+    c_anchor = se3_inv(poses[max(t0 - 1, 0)])[:3]
+    xyz = inv[:, :3] + (1.0 - 1.0 / rate) * (c_anchor - inv[:, :3])
+    poses[t0:n] = se3_inv(torch.cat([xyz, inv[:, 3:]], -1))
+    return poses, patches, rate

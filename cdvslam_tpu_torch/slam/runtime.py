@@ -14,10 +14,18 @@ edges, and runs the block-sparse global BA after an update that holds
 long-range edges. Heavy work runs on ``device`` (the card unless the
 caller asks for the CPU); edge lists and control flow stay on the host.
 
+The seg and depth heads (``SEG_HEAD``, ``DEPTH_HEAD``: linear or DPT)
+run on the frame's DINO tokens: under ``CENTROID_SEL_STRAT="SCORE"`` the
+seg head's dynamic-class mask steers patch selection, under
+``FILTER_DYNAMIC_CLASS`` edges on dynamic-class patches are down-weighted,
+and a depth head initializes the patch depths and anchors the monocular
+scale after each update.
+
 Configurations outside this slice raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+from pathlib import Path
 from warnings import warn
 
 import numpy as np
@@ -28,9 +36,16 @@ from ..config import get_cfg
 from ..lie import se3_identity, se3_inv, se3_mul
 from ..loop.proximity import edges_loop
 from ..models import CDVNet, build_update_aux
-from ..models.patchifier import coords_grid_with_index, pyramidify, select_random_grid
+from ..models.datamaps import ADE20K_INDEX_FILT
+from ..models.dpt import DPTHead, resize
+from ..models.heads import DepthHeadFlatten, SegHeadFlatten
+from ..models.patchifier import (
+    coords_grid_with_index, pyramidify, seg_binary_score, select_random_grid, select_score,
+)
 from ..ops.patchify import patchify
-from .kernels import EdgeIndex, motion_extrapolate, update_body
+from .kernels import (
+    EdgeIndex, dynamic_class_weight, motion_extrapolate, scale_adjustment, update_body,
+)
 from .state import PatchGraph
 
 
@@ -39,15 +54,27 @@ def _unsupported(cfg, network, viz):
         return f"network={network!r} (only 'cdv' is ported)"
     if viz:
         return "viz"
-    for key in ("CLASSIC_LOOP_CLOSURE", "FILTER_DYNAMIC_CLASS"):
-        if cfg[key]:
-            return key
-    for key in ("SEG_HEAD", "DEPTH_HEAD"):
-        if cfg[key] and cfg[key] != "None":
-            return key
-    if cfg.CENTROID_SEL_STRAT != "RANDOM_GRID":
+    if cfg.CLASSIC_LOOP_CLOSURE:
+        return "CLASSIC_LOOP_CLOSURE"
+    if cfg.CENTROID_SEL_STRAT not in ("RANDOM_GRID", "SCORE"):
         return f"CENTROID_SEL_STRAT={cfg.CENTROID_SEL_STRAT!r}"
     return None
+
+
+def _head_set(value):
+    """A SEG_HEAD / DEPTH_HEAD value that asks for a head."""
+    return bool(value) and value != "None"
+
+
+def _load_head(head, path):
+    """A reference .pth (optionally a {"state_dict": ...} wrapper, keys
+    optionally under ``decode_head.``) into ``head``."""
+    if not Path(path).exists():
+        raise FileNotFoundError(f"head checkpoint not found: {path}")
+    ckpt = torch.load(path, map_location="cpu")
+    if "state_dict" in ckpt:
+        ckpt = ckpt["state_dict"]
+    head.load_state_dict({k.removeprefix("decode_head."): v for k, v in ckpt.items()})
 
 
 def resolve_device(device):
@@ -73,15 +100,24 @@ def _alloc_slot(table, n, cap):
 class SLAM:
     def __init__(self, cfg=None, network="cdv", ht=480, wd=640, viz=False,
                  seed=0, device=None, state_dict=None, patch_sampler=None,
-                 dtype=None):
+                 dtype=None, score_noise=None):
         """``state_dict``: CDVNet weights (e.g. ``models.convert.
         load_flax_params``); random weights from ``seed`` when None.
         ``patch_sampler(counter) -> (coords (M, 2), init_depth (M,))``
-        replaces the seeded RANDOM_GRID draw and pre-init random depths.
+        replaces the seeded RANDOM_GRID draw and pre-init random depths
+        (under SCORE only its depths are used).
+        ``score_noise(counter) -> (hi*wi,) uniforms in [1e-12, 1)``
+        replaces the seeded draw of SCORE's Gumbel noise.
         ``dtype``: one float type for the networks and the geometry, on the
         CPU only (float64 gives a high-precision run to hold float32 runs
         against); None: bfloat16 networks under MIXED_PRECISION, else
-        float32, and float32 geometry."""
+        float32, and float32 geometry; the heads run in the geometry's type.
+
+        Heads: SEG_HEAD / DEPTH_HEAD name a reference checkpoint (.pth), or
+        "random" (and, for the depth head, "dpt" or "dpt_random") for
+        seeded random weights; a DEPTH_HEAD containing "dpt" is the DPT
+        head. A missing checkpoint raises ``FileNotFoundError``. SCORE
+        needs the seg head (``ValueError`` without it)."""
         self.cfg = cfg if cfg is not None else get_cfg()
         why = _unsupported(self.cfg, network, viz)
         if why is not None:
@@ -129,6 +165,8 @@ class SLAM:
 
         self.generator = torch.Generator().manual_seed(seed)
         self.patch_sampler = patch_sampler or self._random_grid_sampler
+        self.score_noise = score_noise or self._score_noise
+        self._setup_heads()
         self.tlist = []
         self.stats = {"updates": 0, "keyframe_removals": 0, "loop_edges": 0,
                       "global_ba": 0}
@@ -136,7 +174,40 @@ class SLAM:
         self.last_global_ba = -1000   # n when loop edges were last added
         self.ran_global_ba = set()    # keyframe counts n that ran a global BA
 
+    def _setup_heads(self):
+        """The seg and depth heads, in the geometry's type on the device:
+        seeded random weights or a reference checkpoint. The seg seed (14)
+        gives about a fifth of the tokens a dynamic class on the random
+        network's tokens at 480 x 752; seed 11 gives none."""
+        cfg = self.cfg
+        self.seg_head = self.depth_head = self.filt_index = None
+        self.depth_is_dpt = _head_set(cfg.DEPTH_HEAD) and "dpt" in cfg.DEPTH_HEAD
+        if cfg.CENTROID_SEL_STRAT == "SCORE" and not _head_set(cfg.SEG_HEAD):
+            raise ValueError("SCORE selection needs a seg head (SEG_HEAD); the port "
+                             "builds no score head")
+        heads = []
+        if _head_set(cfg.SEG_HEAD):
+            heads.append(("seg_head", SegHeadFlatten, cfg.SEG_HEAD, ("random",), 14))
+        if _head_set(cfg.DEPTH_HEAD):
+            heads.append(("depth_head", DPTHead if self.depth_is_dpt else DepthHeadFlatten,
+                          cfg.DEPTH_HEAD, ("dpt", "dpt_random") if self.depth_is_dpt
+                          else ("random",), 12))
+        for attr, cls, value, random_names, head_seed in heads:
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(head_seed)
+                head = cls()
+            if value not in random_names:
+                _load_head(head, value)
+            setattr(self, attr, head.to(device=self.device, dtype=self.gdtype).eval())
+        if self.seg_head is not None:
+            self.filt_index = torch.tensor(ADE20K_INDEX_FILT, device=self.device)
+        if self.depth_head is not None:
+            self.scale_factor = self.depth_head.max_depth / 4.0
+
     # ------------------------------------------------------------------
+    def _score_noise(self, counter):
+        return torch.rand(self.hi * self.wi, generator=self.generator).clamp(min=1e-12)
+
     def _random_grid_sampler(self, counter):
         coords = select_random_grid(
             self.generator, 1, self.M, self.hi, self.wi, self.P, 4.0 / 14.0,
@@ -150,33 +221,59 @@ class SLAM:
         return fs, ps
 
     def _insert_frame(self, image, n, fac, initialized, intrinsics, counter):
-        """Features, patch selection and gathers, motion model, depth init,
-        and the writes of frame row n; ``counter`` is the frame's id."""
+        """Features, patch selection and gathers, the heads, motion model,
+        depth init, and the writes of frame row n; ``counter`` is the
+        frame's id."""
         cfg, pg, M, P = self.cfg, self.pg, self.M, self.P
-        dev = self.device
+        dev, gd = self.device, self.gdtype
         img = torch.as_tensor(np.asarray(image)).to(dev).float()
         image_f32 = (img / 255.0)[None]
         image_c = image_f32.to(self.fdtype)
         fmap = self.model.features_f(image_c)                        # (1,C,hf,wf)
-        tmap = self.model.features_i(image_c)[0]                     # (1,384,hi,wi)
+        tmap, tokens, raw, cls, _, taps = self.model.features_i_taps(image_c)
         _, _, hf, wf = fmap.shape
+        hi, wi = tmap.shape[2:]
 
-        coords, drand = self.patch_sampler(counter)
-        coords = torch.as_tensor(np.array(coords, np.float32), device=dev).reshape(1, M, 2)
-        drand = torch.as_tensor(np.array(drand, np.float32), device=dev).reshape(M)
         upperleft = cfg.CENTROID_SAMPLE_STRAT == "UPPERLEFT"
+        coords, drand = self.patch_sampler(counter)
+        drand = torch.as_tensor(np.array(drand, np.float32), device=dev).reshape(M)
+        if cfg.CENTROID_SEL_STRAT != "SCORE":
+            coords = torch.as_tensor(np.array(coords, np.float32), device=dev)
+        else:
+            # seg-filtered selection: static interior tokens score 1
+            dyn = self.seg_head.filt_mask(tokens[0].to(gd), self.filt_index)
+            u = torch.as_tensor(np.array(self.score_noise(counter), np.float32), device=dev)
+            coords, score_row = select_score(u.reshape(1, hi * wi),
+                                             seg_binary_score(dyn, 1, hi, wi), M, 4.0 / 14.0,
+                                             upperleft)
+            pg.score_[n * M:(n + 1) * M] = score_row
+        coords = coords.reshape(1, M, 2)
         ictx = patchify(tmap, (4.0 / 14.0) * coords, 0,
                         mode="upperleft" if upperleft else "bilinear")[..., 0, 0]
         ictx = self.model.adapt(ictx)
+        if self.seg_head is not None:
+            pg.seg_[n] = self.seg_head.seg_class((ictx[0] * 4.0).to(gd))
         gmap = patchify(fmap, coords, P // 2, mode="bilinear")
-        disps = torch.ones((1, hf, wf), dtype=self.gdtype, device=dev)
+        if self.depth_head is not None:
+            if self.depth_is_dpt:
+                dm = self.depth_head([(t.to(gd), c.to(gd)) for t, c in taps])[:, 0]
+            else:
+                # the linear head reads the raw last-layer tokens and cls
+                tok = torch.cat([raw[0].to(gd), cls.to(gd).expand(hi * wi, -1)], -1)
+                dm = self.depth_head(tok)[:, 0].reshape(1, hi, wi)
+            dm = (dm / self.scale_factor).clamp(min=1e-3)
+            disps = resize((1.0 / dm)[None], (hf, wf))[0]
+        else:
+            disps = torch.ones((1, hf, wf), dtype=gd, device=dev)
         grid = coords_grid_with_index(disps[None])[0]
         patch_row = patchify(grid, coords, P // 2, mode="bilinear")[0]
 
         pg.intrinsics_[n] = torch.as_tensor(
             np.asarray(intrinsics, np.float64) / self.RES, dtype=self.gdtype)
         pg.poses_[n] = motion_extrapolate(pg.poses_, n, fac, cfg.MOTION_DAMPING)
-        if initialized:
+        if self.depth_head is not None:
+            pg.scale_[n] = patch_row[:, 2, P // 2, P // 2].mean()
+        elif initialized:
             # median inverse depth of the last three frames
             idx3 = [min(max(n - 3, 0) + i, max(n - 1, 0)) for i in range(3)]
             pflat = pg.patches_.reshape(self.N, M, 3, P, P)
@@ -240,7 +337,9 @@ class SLAM:
         return min(k0, self.N * M - KWIN), KWIN
 
     def _run_update(self, ii, jj, kk, net, t0, iterations, mm_pair=None):
-        """update_body over edges (ii, jj, kk) and hidden state ``net``."""
+        """update_body over edges (ii, jj, kk) and hidden state ``net``; the
+        weights take the dynamic-class factors (under FILTER_DYNAMIC_CLASS
+        with a seg head) and the patch scores (under SCORE)."""
         pg, M, dev = self.pg, self.M, self.device
         k0, KWIN = self.patch_window(kk)
         aux = build_update_aux(ii, jj, kk, k0, KWIN, M=M)._replace(mask=None)
@@ -258,10 +357,15 @@ class SLAM:
             mi, mj = mm_pair
             mm_sel = dt(np.stack([(ii == mi) & (jj == mj), (ii == mj) & (jj == mi)]),
                         torch.bool)
+        weight_mul = score_win = None
+        if self.cfg.FILTER_DYNAMIC_CLASS and self.seg_head is not None:
+            weight_mul = dynamic_class_weight(pg.seg_, self.filt_index, dt(kk))
+        if self.cfg.CENTROID_SEL_STRAT == "SCORE":
+            score_win = pg.score_[k0:k0 + KWIN]
         poses, patches_win, net, target, weight, delta_norm, mm = update_body(
             self.model, pg.poses_, pg.patches_[k0:k0 + KWIN], pg.intrinsics_,
             pg.imap_, pg.gmap_, pg.fmap1_, pg.fmap2_, net, idx, t0,
-            float(self.ht4), float(self.wd4), mm_sel,
+            float(self.ht4), float(self.wd4), mm_sel, weight_mul, score_win,
             NW=self.NW, KWIN=KWIN, iterations=iterations)
         return poses, patches_win, k0, net, (target, weight), delta_norm, mm
 
@@ -269,7 +373,8 @@ class SLAM:
         """One update of the active edges; returns the keyframe motion
         magnitudes (2,) measured on the poses after the local BA. With
         long-range (loop) edges and no global BA yet at this keyframe count,
-        the update runs no local BA and the global BA follows it."""
+        the update runs no local BA and the global BA follows it; otherwise,
+        with a depth head, the scale adjustment follows it."""
         cfg, pg = self.cfg, self.pg
         if pg.E == 0:
             return None
@@ -287,6 +392,9 @@ class SLAM:
             pg.tw = torch.cat([target, weight], 1)
         if long_range:
             self._run_global_ba()
+        elif self.depth_head is not None:
+            pg.poses_, pg.patches_, _ = scale_adjustment(
+                pg.poses_, pg.patches_, pg.scale_, t0, pg.n, 0.2, self.M)
         return mm
 
     # ------------------------------------------------------------------
@@ -385,6 +493,9 @@ class SLAM:
         pg.poses_[k:n - 1] = pg.poses_[k + 1:n].clone()
         pg.intrinsics_[k:n - 1] = pg.intrinsics_[k + 1:n].clone()
         pg.patches_[k * M:(n - 1) * M] = pg.patches_[(k + 1) * M:n * M].clone()
+        pg.seg_[k:n - 1] = pg.seg_[k + 1:n].clone()
+        pg.scale_[k:n - 1] = pg.scale_[k + 1:n].clone()
+        pg.score_[k * M:(n - 1) * M] = pg.score_[(k + 1) * M:n * M].clone()
         pg.n -= 1
         pg.m -= M
 

@@ -36,6 +36,12 @@ class PatchGraph:
         # frame f owns patch rows [f*M, (f+1)*M)
         self.patches_ = torch.zeros((N * M, 3, P, P), **fg)
         self.intrinsics_ = torch.zeros((N, 4), **fg)
+        # per-patch seg class, per-frame depth anchor (the mean centre
+        # inverse depth of the frame's new patches) and per-patch selection
+        # score; the SLAM writes each only where its head or strategy is on
+        self.seg_ = torch.zeros((N, M), dtype=torch.uint8, device=device)
+        self.scale_ = torch.zeros(N, **fg)
+        self.score_ = torch.ones(N * M, **fg)
         # feature ring buffers, indexed through the runtime's slot tables
         self.imap_ = torch.zeros((pmem * M, DIM), **ff)
         self.gmap_ = torch.zeros((pmem * M, DIMF, P, P), **ff)

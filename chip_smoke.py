@@ -34,12 +34,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
      attention launches per frame; one global BA's inputs are captured and
      solved twice (bitwise equal), and the corr inputs of one update that
      holds loop edges are captured, checked (bf16 rule) and timed
+  7  the CDVO++ path: get_cfg() merged with config/default_cdvo++.yaml
+     (SCORE selection, linear seg and depth heads, FILTER_DYNAMIC_CLASS)
+     with SEG_HEAD="random", DEPTH_HEAD="random" and MOTION_PROBE_THR=-1,
+     the weights and frames of phase 4, 60 warm-up frames, one 100-frame
+     timed window, terminate(); poses finite, corr launched once per update
+     and flash attention 12 times per frame, the share of tokens of a
+     dynamic class in (0, 1), a share of edges down-weighted to 1e-4 above
+     0, no zero score among the selected patches, the scale adjustment's
+     openings counted, scale_adjustment on a crafted pose pair on the card
+     against the CPU; then 40 frames with DEPTH_HEAD="dpt_random": depths
+     and poses finite, ms per frame insert (synchronize on each side)
 
 Then a kernels line (a list of per-kernel records: launches on the main
 path, max error, kernel / plain / library times and the roofline bound;
 K1's record adds the phase-5 times as ms_main_path and friends and the
 phase-6 times as ms_loop_update and friends; both records add
-launches_loop_path),
+launches_loop_path and launches_cdvo_pp_path),
 the nvidia-smi line, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -48,9 +59,10 @@ steady-state frames of the main path timed and 20 more under
 torch.profiler: device busy time and idle share (busy over the untraced
 wall time), launches per frame, the port's two kernels and the top
 kernels by device time; then the same for the loop-closure path of
-phase 6 after 100 warm-up frames. The full tables go to
-DIR/profile_main_path.txt and DIR/profile_loop_path.txt. It prints
-neither the kernels line nor the ok line.
+phase 6 after 100 warm-up frames and for the CDVO++ path of phase 7 after
+60 (with the heads' device time and launches per frame). The full tables
+go to DIR/profile_{main,loop,cdvo_pp}_path.txt. It prints neither the
+kernels line nor the ok line.
 It never imports JAX or the JAX package. Needs one CUDA card.
 """
 import argparse
@@ -71,6 +83,7 @@ K_CORR, C, NF, E = 36 * 96, 24, 36, 9600
 LC_FRAMES = 120     # frames of the loop-closure path (phase 6)
 LEVELS = {"level1": (120, 188), "level2": (30, 47)}
 ATTN_SHAPE = (1, 6, 1891, 64)
+HEAD_RANGES = ("seg_head", "depth_head")   # profiler ranges around the heads
 
 
 def emit(obj):
@@ -546,10 +559,219 @@ def phase6(smi):
     return counts, captured["corr"]
 
 
+def _cdvo_pp_cfg(depth_head="random"):
+    """get_cfg() merged with config/default_cdvo++.yaml, random seeded heads,
+    no motion probe."""
+    from cdvslam_tpu_torch.config import get_cfg
+    preset = (ROOT / "config" / "default_cdvo++.yaml").read_text().splitlines()
+    cfg = get_cfg().merge_from_list(
+        [t.strip() for ln in preset if ":" in ln for t in ln.split(":", 1)])
+    cfg.SEG_HEAD, cfg.DEPTH_HEAD = "random", depth_head
+    cfg.MOTION_PROBE_THR = -1.0
+    return cfg
+
+
+def _scale_adjustment_on_card():
+    """scale_adjustment on a crafted window whose last two poses turn by
+    0.1 rad (the gate opens), on the card against the CPU: max abs
+    difference of poses and depths, and the rate."""
+    import torch
+    from cdvslam_tpu_torch.lie import se3_exp
+    from cdvslam_tpu_torch.slam.kernels import scale_adjustment
+    g = torch.Generator().manual_seed(7)
+    N, M, t0, n = 32, 96, 3, 13
+    xi = 0.05 * torch.randn((N, 6), generator=g)
+    xi[n - 1, 3:] = xi[n - 2, 3:] + torch.tensor([0.1, 0.0, 0.0])
+    poses = se3_exp(xi)
+    patches = 0.2 + torch.rand((N * M, 3, 3, 3), generator=g)
+    scale = 0.3 + torch.rand((N,), generator=g)
+    want = scale_adjustment(poses.clone(), patches.clone(), scale, t0, n, 0.2, M)
+    got = scale_adjustment(poses.cuda(), patches.cuda(), scale.cuda(), t0, n, 0.2, M)
+    torch.cuda.synchronize()
+    return {"poses": (got[0].cpu() - want[0]).abs().max().item(),
+            "depths": (got[1].cpu() - want[1]).abs().max().item(),
+            "rate": float(got[2]), "rate_cpu": float(want[2])}
+
+
+def phase7(smi):
+    """The CDVO++ path at 480 x 752 and a DPT sub-run; returns the launch
+    counts of the 160-frame run."""
+    import numpy as np
+    import torch
+    from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
+    from cdvslam_tpu_torch.slam import SLAM
+    from cdvslam_tpu_torch.slam import runtime
+    WARM, WIN = 60, 100
+    frames, intr = _frames()
+    slam = SLAM(_cdvo_pp_cfg(), network="cdv", ht=480, wd=752, seed=0)
+    # device-side tallies of what the heads did; read once after the run
+    tally = {k: torch.zeros((), dtype=torch.float64, device=slam.device) for k in (
+        "tokens", "dynamic_tokens", "edges", "down_weighted", "selected", "zero_scores",
+        "adjustments", "openings")}
+
+    def add(key, value):
+        tally[key] += value
+
+    filt_mask, dcw = slam.seg_head.filt_mask, runtime.dynamic_class_weight
+    sel, adj = runtime.select_score, runtime.scale_adjustment
+
+    def counted_filt_mask(x, filt_index):
+        mask = filt_mask(x, filt_index)
+        add("tokens", mask.numel())
+        add("dynamic_tokens", mask.sum())
+        return mask
+
+    def counted_dcw(*args):
+        mul = dcw(*args)
+        add("edges", mul.shape[0])
+        add("down_weighted", (mul[:, 0] < 1).sum())
+        return mul
+
+    def counted_select(*args):
+        coords, scores = sel(*args)
+        add("selected", scores.numel())
+        add("zero_scores", (scores == 0).sum())
+        return coords, scores
+
+    def counted_adjust(*args):
+        poses, patches, rate = adj(*args)
+        add("adjustments", 1)
+        add("openings", rate != 1)
+        return poses, patches, rate
+
+    slam.seg_head.filt_mask = counted_filt_mask
+    runtime.dynamic_class_weight, runtime.select_score = counted_dcw, counted_select
+    runtime.scale_adjustment = counted_adjust
+    torch.cuda.reset_peak_memory_stats()
+    corr_cuda.LAUNCHES.reset()
+    flash_attn.LAUNCHES.reset()
+    try:
+        t_start = time.perf_counter()
+        for f in range(WARM):
+            slam(f, frames[f % 8], intr)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t_start
+        upd0, corr0, attn0 = (slam.stats["updates"], corr_cuda.LAUNCHES.count,
+                              flash_attn.LAUNCHES.count)
+        t0 = time.perf_counter()
+        for f in range(WARM, WARM + WIN):
+            slam(f, frames[f % 8], intr)
+        torch.cuda.synchronize()
+        win_s = time.perf_counter() - t0
+        win = {"updates": slam.stats["updates"] - upd0,
+               "corr": corr_cuda.LAUNCHES.count - corr0,
+               "attn": flash_attn.LAUNCHES.count - attn0}
+        edges = slam.pg.E
+        poses, _ = slam.terminate()
+        torch.cuda.synchronize()
+    finally:
+        runtime.dynamic_class_weight, runtime.select_score = dcw, sel
+        runtime.scale_adjustment = adj
+    counts = {"corr": corr_cuda.LAUNCHES.count, "dino_flash_attn": flash_attn.LAUNCHES.count}
+    t = {k: v.item() for k, v in tally.items()}
+    frames_run, M = WARM + WIN, slam.M
+    shares = {"dynamic_tokens": t["dynamic_tokens"] / max(t["tokens"], 1),
+              "down_weighted_edges": t["down_weighted"] / max(t["edges"], 1)}
+    crafted = _scale_adjustment_on_card()
+    checks = {
+        "poses_shape": list(poses.shape) == [frames_run, 7],
+        "poses_finite": bool(np.isfinite(poses).all()),
+        "corr_1_per_update": counts["corr"] == slam.stats["updates"] and win["corr"] == win["updates"],
+        "attn_12_per_frame": counts["dino_flash_attn"] == 12 * frames_run and win["attn"] == 12 * WIN,
+        "one_update_per_frame": win["updates"] == WIN,
+        "dynamic_token_share_in_0_1": 0 < shares["dynamic_tokens"] < 1,
+        "down_weighted_edges": t["down_weighted"] > 0,
+        "no_zero_selected_score": t["zero_scores"] == 0 and t["selected"] == M * frames_run,
+        "scale_adjustment_card_matches_cpu": (crafted["rate"] != 1.0
+                                             and crafted["poses"] <= 1e-5
+                                             and crafted["depths"] <= 1e-5),
+    }
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = dict(slam.stats)
+    del slam
+    torch.cuda.empty_cache()
+    dpt = _dpt_subrun(frames, intr)
+    checks.update(dpt.pop("checks"))
+    ok = all(checks.values())
+    emit({"phase": 7, "fps": WIN / win_s, "window_s": win_s, "warmup_s": warm_s,
+          "frames": frames_run, "updates": stats["updates"],
+          "keyframe_removals": stats["keyframe_removals"], "edges": edges,
+          "shares": shares, "tally": t, "scale_adjustment_crafted": crafted,
+          "launches": counts, "checks": checks, "card": smi, "peak_mem_gb": peak_gb,
+          "dpt_subrun": dpt,
+          "cuts": {"weights": "random (seed 0), heads random (seeds 14 and 12)",
+                   "frames": frames_run}, "ok": ok})
+    if not ok:
+        raise SystemExit(f"phase 7: CDVO++ path checks failed: {checks}")
+    return counts
+
+
+def _dpt_subrun(frames, intr, nframes=40):
+    """DEPTH_HEAD="dpt_random" for nframes frames: ms per frame insert (a
+    synchronize on each side) and the checks."""
+    import numpy as np
+    import torch
+    from cdvslam_tpu_torch.ops import flash_attn
+    from cdvslam_tpu_torch.slam import SLAM
+    slam = SLAM(_cdvo_pp_cfg("dpt_random"), network="cdv", ht=480, wd=752, seed=0)
+    insert, insert_ms = slam._insert_frame, []
+
+    def timed_insert(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        insert(*args)
+        torch.cuda.synchronize()
+        insert_ms.append((time.perf_counter() - t) * 1e3)
+
+    slam._insert_frame = timed_insert
+    torch.cuda.reset_peak_memory_stats()
+    attn0 = flash_attn.LAUNCHES.count
+    for f in range(nframes):
+        slam(f, frames[f % 8], intr)
+    n, M = slam.pg.n, slam.M
+    depths = slam.pg.patches_[: n * M, 2]
+    depths_ok = bool(torch.isfinite(depths).all() and (depths > 0).all()
+                     and torch.isfinite(slam.pg.scale_[:n]).all())
+    poses, _ = slam.terminate()
+    torch.cuda.synchronize()
+    steady = insert_ms[8:]
+    return {"frames": nframes, "insert_ms_median": statistics.median(steady),
+            "insert_ms_min": min(steady), "insert_ms_max": max(steady),
+            "depth_range": [depths.min().item(), depths.max().item()],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "checks": {"dpt_depths_finite": depths_ok,
+                       "dpt_poses_finite": bool(np.isfinite(poses).all()),
+                       "dpt_attn_12_per_frame":
+                           flash_attn.LAUNCHES.count - attn0 == 12 * nframes}}
+
+
+def _tree_kernels(event):
+    """Device time (us) and launches of the kernels under a profiler event."""
+    us = sum(k.duration for k in event.kernels)
+    n = len(event.kernels)
+    for child in event.cpu_children:
+        c_us, c_n = _tree_kernels(child)
+        us, n = us + c_us, n + c_n
+    return us, n
+
+
+def _label_heads(slam):
+    """Wrap each head's forward in a profiler range named after it."""
+    import torch
+    for name in HEAD_RANGES:
+        head = getattr(slam, name, None)
+        if head is not None:
+            def forward(*args, _f=head.forward, _name=name):
+                with torch.profiler.record_function(_name):
+                    return _f(*args)
+            head.forward = forward
+
+
 def _profile_window(slam, frames, intr, start, win, table_path):
     """win frames timed, then win more under torch.profiler: device busy
     time and idle share (busy over the untraced wall time), launches per
-    frame, the port's two kernels and the top kernels and host ops."""
+    frame, the port's two kernels, the heads' ranges (see _label_heads) and
+    the top kernels and host ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     # the same number of frames unprofiled first: the profiler's own host
@@ -566,7 +788,8 @@ def _profile_window(slam, frames, intr, start, win, table_path):
         torch.cuda.synchronize()
     traced_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in HEAD_RANGES]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
@@ -574,6 +797,15 @@ def _profile_window(slam, frames, intr, start, win, table_path):
                                        if name in e.key) / 1e3 / win,
                    "calls_per_frame": sum(e.count for e in kernels if name in e.key) / win}
             for name in ("corr_pyramid_kernel", "flash_qkv_kernel")}
+    heads = {}
+    for e in prof.events():
+        if e.name in HEAD_RANGES and e.device_type == torch.autograd.DeviceType.CPU:
+            us, n = _tree_kernels(e)
+            h = heads.setdefault(e.name, {"device_ms_per_frame": 0.0, "launches_per_frame": 0.0})
+            h["device_ms_per_frame"] += us / 1e3 / win
+            h["launches_per_frame"] += n / win
+    for h in heads.values():
+        h["share_of_device_time"] = h["device_ms_per_frame"] / (busy_ms / win)
     table_path.write_text(events.table(sort_by="self_device_time_total", row_limit=60))
     ops = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA),
                  key=lambda e: -e.self_cpu_time_total)[:8]
@@ -582,7 +814,7 @@ def _profile_window(slam, frames, intr, start, win, table_path):
             "device_busy_ms_per_frame": busy_ms / win,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "kernel_launches_per_frame": launches / win,
-            "port_kernels": ours,
+            "port_kernels": ours, "heads": heads,
             "top_kernels_ms_per_frame": {e.key[:60]: e.self_device_time_total / 1e3 / win
                                          for e in top},
             "top_host_ops_ms_per_frame": {e.key[:60]: e.self_cpu_time_total / 1e3 / win
@@ -590,9 +822,10 @@ def _profile_window(slam, frames, intr, start, win, table_path):
 
 
 def profile_paths(out_dir):
-    """The main path (60 warm-up frames) and the loop-closure path (100
-    warm-up frames: about 78 keyframes past the first loop detection), 20
-    frames timed and 20 traced each."""
+    """The main path (60 warm-up frames), the loop-closure path (100
+    warm-up frames: about 78 keyframes past the first loop detection) and
+    the CDVO++ path (60 warm-up frames), 20 frames timed and 20 traced
+    each."""
     import torch
     from cdvslam_tpu_torch.config import get_cfg
     from cdvslam_tpu_torch.slam import SLAM
@@ -600,8 +833,10 @@ def profile_paths(out_dir):
     out_dir.mkdir(parents=True, exist_ok=True)
     main_cfg = get_cfg()
     main_cfg.MOTION_PROBE_THR = -1.0
-    for path, cfg, warm in (("main", main_cfg, 60), ("loop", _loop_cfg(), 100)):
+    for path, cfg, warm in (("main", main_cfg, 60), ("loop", _loop_cfg(), 100),
+                            ("cdvo_pp", _cdvo_pp_cfg(), 60)):
         slam = SLAM(cfg, network="cdv", ht=480, wd=752, seed=0)
+        _label_heads(slam)
         for f in range(warm):
             slam(f, frames[f % 8], intr)
         torch.cuda.synchronize()
@@ -617,8 +852,9 @@ def profile_paths(out_dir):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", type=Path,
-                    help="run phase 0 and the profiles of the main and the loop-closure "
-                         "path only; the tables go to DIR/profile_{main,loop}_path.txt")
+                    help="run phase 0 and the profiles of the main, the loop-closure and "
+                         "the CDVO++ path only; the tables go to "
+                         "DIR/profile_{main,loop,cdvo_pp}_path.txt")
     args = ap.parse_args()
     if not (ROOT / "cdvslam_tpu_torch").is_dir():
         print("chip_smoke.py: cdvslam_tpu_torch/ is not beside this script", file=sys.stderr)
@@ -641,6 +877,7 @@ def main():
     main_rec = corr_on_captured(5, captured)
     lc_counts, lc_captured = phase6(smi)
     loop_rec = corr_on_captured("6-corr", lc_captured)
+    pp_counts = phase7(smi)
 
     ops_ms, bytes_ms = attn_rec["bound"]
     kernels = [
@@ -657,6 +894,7 @@ def main():
          "bound_ms_main_path": main_rec["bound_ms"],
          "box_share_main_path": main_rec["box_share"],
          "launches_loop_path": lc_counts["corr"],
+         "launches_cdvo_pp_path": pp_counts["corr"],
          "E_loop_update": lc_captured[3].shape[0], "ms_loop_update": loop_rec["ms"],
          "plain_ms_loop_update": loop_rec["plain_ms"],
          "bound_ms_loop_update": loop_rec["bound_ms"],
@@ -670,6 +908,7 @@ def main():
          "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
          "library_ms": attn_rec["library_ms"],
          "launches_loop_path": lc_counts["dino_flash_attn"],
+         "launches_cdvo_pp_path": pp_counts["dino_flash_attn"],
          "per": "one call, packed qkv (1, 1891, 1152) bf16 -> (1, 1891, 384); ms and "
                 "library_ms are medians of 5 alternating rounds of 20 calls",
          "rounds": attn_rec["rounds"]},

@@ -9,7 +9,10 @@ same bf16 values; flash attention bf16 max abs 2e-2 and relative Frobenius
 1e-2 (bf16 probabilities against bf16 softmax then matmul); global BA on
 the card against the CPU port on the same float32 inputs 1e-4 on poses and
 1e-3 on inverse depths (cuBLAS and the CPU sum in other orders), and two
-solves on the card bitwise equal.
+solves on the card bitwise equal; the heads on the card against the CPU
+port in float32 with TF32 off: seg logits 1e-4 with equal classes, linear
+depth 1e-4 relative, DPT and its resize 1e-4 of max |CPU| (cuDNN and the
+CPU sum the convolutions in other orders).
 """
 import pytest
 import torch
@@ -17,6 +20,8 @@ import torch
 from cdvslam_tpu_torch.ba.global_ba import build_global_indices, global_ba_solve
 from cdvslam_tpu_torch.geom import transform
 from cdvslam_tpu_torch.lie import SE3, se3_exp, se3_mul
+from cdvslam_tpu_torch.models.dpt import DPTHead, resize
+from cdvslam_tpu_torch.models.heads import DepthHeadFlatten, SegHeadFlatten
 from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
 from cdvslam_tpu_torch.ops.corr import corr_pyramid_plain
 
@@ -165,3 +170,29 @@ def test_global_ba_on_the_card_matches_the_cpu_and_repeats(card):
     assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
     assert (runs[0][0].cpu() - want[0]).abs().max().item() <= 1e-4
     assert (runs[0][1].cpu() - want[1]).abs().max().item() <= 1e-3
+
+
+def test_heads_on_the_card_match_the_cpu(card, monkeypatch):
+    """The linear heads on the 480 x 752 token count and the DPT on its
+    35 x 54 taps, then 1/depth resized to the 120 x 188 grid."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    torch.manual_seed(0)
+    seg, depth, dpt = SegHeadFlatten().eval(), DepthHeadFlatten(), DPTHead()
+    x, tok = torch.randn(1890, 384), torch.randn(1890, 768)
+    taps = [(torch.randn(1, 35, 54, 384), torch.randn(1, 384)) for _ in range(4)]
+    with torch.no_grad():
+        want = (seg(x), depth(tok), dpt(taps))
+        for m in (seg, depth, dpt):
+            m.to(card)
+        got = (seg(x.to(card)), depth(tok.to(card)),
+               dpt([(t.to(card), c.to(card)) for t, c in taps]))
+        torch.cuda.synchronize()
+    assert (got[0].cpu() - want[0]).abs().max().item() <= 1e-4
+    assert torch.equal(got[0].argmax(-1).cpu(), want[0].argmax(-1))
+    assert ((got[1].cpu() - want[1]).abs() / want[1].abs()).max().item() <= 1e-4
+    assert got[2].shape == want[2].shape == (1, 1, 576, 864)
+    assert (got[2].cpu() - want[2]).abs().max().item() <= 1e-4 * want[2].abs().max().item()
+    disp_want = resize(1.0 / want[2], (120, 188))
+    disp = resize(1.0 / got[2], (120, 188)).cpu()
+    assert (disp - disp_want).abs().max().item() <= 1e-4 * disp_want.abs().max().item()

@@ -1,5 +1,5 @@
-"""Package rules of the port: no JAX, the card by default, and configs
-outside the ported slice refused."""
+"""Package rules of the port: no JAX, the card by default, configs
+outside the ported slice refused, and the heads' set-up rules."""
 import subprocess
 import sys
 from pathlib import Path
@@ -39,9 +39,8 @@ def test_slam_defaults_to_the_card_and_raises_without_one(monkeypatch):
 
 @pytest.mark.parametrize("change", [
     {"network": "dpv"}, {"viz": True}, {"LOOP_CLOSURE": True, "CLASSIC_LOOP_CLOSURE": True},
-    {"CLASSIC_LOOP_CLOSURE": True}, {"SEG_HEAD": "random"}, {"DEPTH_HEAD": "dpt"},
-    {"FILTER_DYNAMIC_CLASS": True}, {"CENTROID_SEL_STRAT": "SCORE"},
-    {"CENTROID_SEL_STRAT": "RANDOM"},
+    {"CLASSIC_LOOP_CLOSURE": True}, {"CENTROID_SEL_STRAT": "RANDOM"},
+    {"CENTROID_SEL_STRAT": "GRADIENT_BIAS"},
 ])
 def test_configs_outside_the_slice_raise(change):
     cfg = get_cfg()
@@ -60,3 +59,29 @@ def test_mixed_precision_off_is_refused_on_the_card():
     cfg.MIXED_PRECISION = False
     with pytest.raises(NotImplementedError, match="bf16"):
         SLAM(cfg, "cdv", ht=64, wd=96, device="cuda")
+
+
+def test_score_without_a_seg_head_raises():
+    cfg = get_cfg()
+    cfg.CENTROID_SEL_STRAT = "SCORE"
+    with pytest.raises(ValueError, match="seg head"):
+        SLAM(cfg, "cdv", ht=64, wd=96, device="cpu")
+
+
+@pytest.mark.parametrize("key", ["SEG_HEAD", "DEPTH_HEAD"])
+def test_missing_head_checkpoint_raises(tmp_path, key):
+    """The JAX package warns and runs without the head; the port refuses."""
+    cfg = get_cfg()
+    cfg[key] = str(tmp_path / "missing.pth")
+    with pytest.raises(FileNotFoundError, match="missing.pth"):
+        SLAM(cfg, "cdv", ht=64, wd=96, device="cpu")
+
+
+def test_cdvo_pp_preset_with_random_heads_builds_on_the_cpu():
+    cfg = get_cfg().merge_from_file(Path(__file__).resolve().parents[1] / "config"
+                                    / "default_cdvo++.yaml")
+    assert cfg.CENTROID_SEL_STRAT == "SCORE" and cfg.FILTER_DYNAMIC_CLASS
+    cfg.SEG_HEAD, cfg.DEPTH_HEAD = "random", "random"
+    slam = SLAM(cfg, "cdv", ht=64, wd=96, device="cpu")
+    assert slam.seg_head is not None and slam.depth_head is not None
+    assert not slam.depth_is_dpt and slam.scale_factor == 20.0

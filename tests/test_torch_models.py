@@ -204,6 +204,21 @@ def test_cdvnet_features_i_matches_flax(cdvnet_pair):
         _close(o, r, atol=2e-4, rtol=2e-4)
 
 
+def test_cdvnet_features_i_taps_matches_flax(cdvnet_pair):
+    """features_i's outputs from the same DINO pass, plus the four raw taps."""
+    jm, tree, net, img = cdvnet_pair
+    ref = jm.apply(tree, jnp.asarray(img), method=JCDVNet.features_i_taps)
+    with torch.no_grad():
+        out = net.features_i_taps(torch.from_numpy(img))
+        plain = net.features_i(torch.from_numpy(img))
+    assert all(torch.equal(a, b) for a, b in zip(out[:4], plain[:4]))
+    assert len(out[5]) == 4
+    for (t, c), (rt, rc) in zip(out[5], ref[5]):
+        assert t.shape == (1, 4, 5, 384) and c.shape == (1, 384)
+        _close(t, rt, atol=2e-4, rtol=2e-4)
+        _close(c, rc, atol=2e-4, rtol=2e-4)
+
+
 def test_cdvnet_posenc_matches_flax(cdvnet_pair):
     jm, tree, net, _ = cdvnet_pair
     p_n = np.random.default_rng(6).uniform(-1, 1, (1, 5, 2)).astype(np.float32)
