@@ -20,6 +20,19 @@ def MLP2(dim: int) -> nn.Sequential:
     return nn.Sequential(nn.Linear(dim, dim), nn.ReLU(), nn.Linear(dim, dim))
 
 
+class GatedResidual(nn.Module):
+    """x + sigmoid(gate(x)) * res(x), with res Linear -> ReLU -> Linear
+    (state-dict names ``gate.0``, ``res.0`` and ``res.2``)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.gate = nn.Sequential(nn.Linear(dim, dim), nn.Sigmoid())
+        self.res = nn.Sequential(nn.Linear(dim, dim), nn.ReLU(), nn.Linear(dim, dim))
+
+    def forward(self, x):
+        return x + self.gate(x) * self.res(x)
+
+
 class SoftAgg(nn.Module):
     """Softmax-weighted pooling of edge features over index groups.
 

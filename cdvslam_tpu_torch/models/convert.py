@@ -5,7 +5,8 @@ numpy arrays, ``{"params": {"xfeat_f", "dino", "update_op", "posenc_mod"},
 "batch_stats": {"xfeat_f": ...}}``, and returns a ``CDVNet`` state dict
 under the reference's torch names, the inverse of the JAX package's
 ``convert_update_cdv`` / ``convert_dino`` / ``convert_xfeat``.
-``seg_head_state`` / ``depth_head_state`` / ``dpt_head_state`` do the same
+``vonet_state(tree)`` does the same for the JAX DPVO SLAM's variables
+(``convert_encoder4`` / ``convert_update_dpv``). ``seg_head_state`` / ``depth_head_state`` / ``dpt_head_state`` do the same
 for the JAX SLAM's ``seg_params`` / ``depth_params``, the inverses of
 ``load_seg_head`` / ``load_depth_head`` / ``load_dpt_head``.
 
@@ -46,8 +47,13 @@ def _mlp2(sd, name, p):
     _lin(sd, f"{name}.2", p["Dense_1"])
 
 
-def update_cdv_state(p, prefix="update.") -> dict:
-    """flax ``update_op`` subtree -> ``update.*`` state dict entries."""
+def _soft_agg(sd, name, p):
+    for tname, fname in (("f", "Dense_0"), ("g", "Dense_1"), ("h", "Dense_2")):
+        _lin(sd, f"{name}.{tname}", p[fname])
+
+
+def _update_trunk_state(p, prefix) -> dict:
+    """The trunk and heads both update operators share."""
     sd = {}
     c = p["common"]
     _lin(sd, f"{prefix}corr.0", c["corr_0"])
@@ -57,8 +63,15 @@ def update_cdv_state(p, prefix="update.") -> dict:
     _ln(sd, f"{prefix}norm", c["norm"])
     _mlp2(sd, f"{prefix}c1", c["c1"])
     _mlp2(sd, f"{prefix}c2", c["c2"])
-    for tname, fname in (("f", "Dense_0"), ("g", "Dense_1"), ("h", "Dense_2")):
-        _lin(sd, f"{prefix}agg_kk.{tname}", c["agg_kk"][fname])
+    _soft_agg(sd, f"{prefix}agg_kk", c["agg_kk"])
+    _lin(sd, f"{prefix}d.1", p["heads"]["d"])
+    _lin(sd, f"{prefix}w.1", p["heads"]["w"])
+    return sd
+
+
+def update_cdv_state(p, prefix="update.") -> dict:
+    """flax ``update_op`` subtree -> ``update.*`` state dict entries."""
+    sd = _update_trunk_state(p, prefix)
     _ln(sd, f"{prefix}norm2", p["norm2"])
     g = p["gatten"]
     _lin(sd, f"{prefix}gatten.gate.0", g["gate"])
@@ -70,8 +83,62 @@ def update_cdv_state(p, prefix="update.") -> dict:
     _ln(sd, f"{enc}norm2", e["norm2"])
     _lin(sd, f"{enc}mlp.0", e["mlp_0"])
     _lin(sd, f"{enc}mlp.2", e["mlp_2"])
-    _lin(sd, f"{prefix}d.1", p["heads"]["d"])
-    _lin(sd, f"{prefix}w.1", p["heads"]["w"])
+    return sd
+
+
+def update_dpv_state(p, prefix="update.") -> dict:
+    """flax ``UpdateDPV`` subtree -> ``update.*`` state dict entries;
+    inverse of the JAX package's ``convert_update_dpv``."""
+    sd = _update_trunk_state(p, prefix)
+    _soft_agg(sd, f"{prefix}agg_ij", p["agg_ij"])
+    for i in range(2):
+        _ln(sd, f"{prefix}gru.{2 * i}", p[f"LayerNorm_{i}"])
+        sd.update(gated_residual_state(p[f"GatedResidual_{i}"], f"{prefix}gru.{2 * i + 1}."))
+    return sd
+
+
+def gated_residual_state(p, prefix="") -> dict:
+    """flax ``GatedResidual`` params -> ``gate.0`` / ``res.0`` / ``res.2``.
+
+    flax names a compact module's submodules in the order they are
+    constructed, and ``Dense(dim)(relu(Dense(dim)(x)))`` constructs the
+    outer Dense first: the residual applies ``Dense_2`` first and
+    ``Dense_1`` second. So ``res.0`` (the reference applies it first) is
+    ``Dense_2``; the JAX package's ``convert_update_dpv`` maps it to
+    ``Dense_1`` and so swaps the two (ROADMAP Queue 3)."""
+    sd = {}
+    _lin(sd, f"{prefix}gate.0", p["Dense_0"])
+    _lin(sd, f"{prefix}res.0", p["Dense_2"])
+    _lin(sd, f"{prefix}res.2", p["Dense_1"])
+    return sd
+
+
+_ENCODER_BLOCKS = {"ResidualBlock_0": "layer1.0", "ResidualBlock_1": "layer1.1",
+                   "ResidualBlock_2": "layer2.0", "ResidualBlock_3": "layer2.1"}
+
+
+def encoder4_state(p, prefix) -> dict:
+    """flax ``BasicEncoder4`` params -> ``<prefix>*`` entries; inverse of
+    the JAX package's ``convert_encoder4`` (the norms have no parameters)."""
+    sd = {}
+    _conv(sd, f"{prefix}conv1", p["Conv_0"])
+    for fname, tname in _ENCODER_BLOCKS.items():
+        b = p[fname]
+        _conv(sd, f"{prefix}{tname}.conv1", b["Conv_0"])
+        _conv(sd, f"{prefix}{tname}.conv2", b["Conv_1"])
+        if "Conv_2" in b:
+            _conv(sd, f"{prefix}{tname}.downsample.0", b["Conv_2"])
+    _conv(sd, f"{prefix}conv2", p["Conv_1"])
+    return sd
+
+
+def vonet_state(tree) -> dict:
+    """The JAX DPVO SLAM's flax variables, ``{"params": {"fnet", "inet",
+    "update_op"}}`` as numpy arrays -> a ``VONet`` state dict."""
+    params = tree["params"]
+    sd = encoder4_state(params["fnet"], "patchify.fnet.")
+    sd.update(encoder4_state(params["inet"], "patchify.inet."))
+    sd.update(update_dpv_state(params["update_op"]))
     return sd
 
 

@@ -1,10 +1,12 @@
-"""The CDV update operator (port of ``cdvslam_tpu.models.update``).
+"""The update operators (port of ``cdvslam_tpu.models.update``).
 
-``UpdateCDV`` is the 'pa' variant: corr MLP, temporal messages, SoftAgg
-over patches, then per-(i,j)-group gated linear attention with Fourier
-RoPE, and the delta / weight heads. Index bookkeeping (temporal
-neighbours, patch segments, the (i,j)-group permutation) is built on the
-host by ``build_update_aux`` and passed in as tensors.
+Both share a trunk: the corr MLP, temporal messages and SoftAgg over
+patches. ``UpdateCDV`` is the 'pa' variant: then per-(i,j)-group gated
+linear attention with Fourier RoPE. ``UpdateDPV`` is DPVO's: then SoftAgg
+over (i,j) groups and two gated residual units. Both end in the delta /
+weight heads. Index bookkeeping (temporal neighbours, patch segments, the
+(i,j) groups and the CDV group permutation) is built on the host by
+``build_update_aux`` and passed in as tensors.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from torch import nn
 
 from ..ops.scatter import neighbors_np
 from .attention import GatedAttention
-from .blocks import MLP2, LayerNorm, SoftAgg, gradient_clip
+from .blocks import MLP2, GatedResidual, LayerNorm, SoftAgg, gradient_clip
 
 DIM = 384
 
@@ -49,11 +51,13 @@ class UpdateAux(NamedTuple):
                          cv(self.perm), cv(self.inv_perm), cv(self.mask, torch.bool))
 
 
-class UpdateCDV(nn.Module):
-    """CDV 'pa' update operator. Attribute names follow the reference's
-    torch state dict (``update.corr.0``, ``update.gatten.encoder.q_proj``, ...)."""
+class _UpdateTrunk(nn.Module):
+    """The shared trunk and heads. Attribute names follow the reference's
+    torch state dict (``update.corr.0``, ``update.agg_kk.f``, ``update.d.1``,
+    ...). A subclass builds its own layers, then calls ``_build_heads``, so
+    that seeded inits draw the parameters in the reference's order."""
 
-    def __init__(self, p: int = 3):
+    def __init__(self, p: int):
         super().__init__()
         cdim = 2 * 49 * p * p
         self.corr = nn.Sequential(
@@ -63,22 +67,39 @@ class UpdateCDV(nn.Module):
         self.c1 = MLP2(DIM)
         self.c2 = MLP2(DIM)
         self.agg_kk = SoftAgg(DIM)
-        self.norm2 = LayerNorm(DIM)
-        self.gatten = GatedAttention(DIM)
+
+    def _build_heads(self):
         self.d = nn.Sequential(nn.ReLU(), nn.Linear(DIM, 2))
         self.w = nn.Sequential(nn.ReLU(), nn.Linear(DIM, 2))
 
-    def forward(self, net, inp, corr, aux: UpdateAux, n_kseg: int, posenc=None):
-        """net, inp (1, E, DIM); corr (1, E, 2*49*P*P); aux on net's device.
-        Returns (net, d, w) with d, w of shape (1, E, 2)."""
+    def trunk(self, net, inp, corr, aux: UpdateAux, n_kseg: int):
+        """net, inp (1, E, DIM); corr (1, E, 2*49*P*P) -> net (1, E, DIM)."""
         net = self.norm(net + inp + self.corr(corr))
         mask_ix = (aux.ix >= 0).to(net.dtype)[None, :, None]
         mask_jx = (aux.jx >= 0).to(net.dtype)[None, :, None]
         net = net + self.c1(mask_ix * net[:, aux.ix.clamp(min=0)])
         # c2 gathers from the net after the c1 message was added
         net = net + self.c2(mask_jx * net[:, aux.jx.clamp(min=0)])
-        net = net + self.agg_kk(net, aux.kseg, n_kseg, mask=aux.mask)
+        return net + self.agg_kk(net, aux.kseg, n_kseg, mask=aux.mask)
 
+    def heads(self, net):
+        """(delta, weight), each (1, E, 2)."""
+        return gradient_clip(self.d(net)), torch.sigmoid(gradient_clip(self.w(net)))
+
+
+class UpdateCDV(_UpdateTrunk):
+    """CDV 'pa' update operator."""
+
+    def __init__(self, p: int = 3):
+        super().__init__(p)
+        self.norm2 = LayerNorm(DIM)
+        self.gatten = GatedAttention(DIM)
+        self._build_heads()
+
+    def forward(self, net, inp, corr, aux: UpdateAux, n_kseg: int, posenc=None):
+        """net, inp (1, E, DIM); corr (1, E, 2*49*P*P); aux on net's device.
+        Returns (net, d, w) with d, w of shape (1, E, 2)."""
+        net = self.trunk(net, inp, corr, aux, n_kseg)
         G, M = aux.perm.shape
         E = net.shape[1]
         perm = aux.perm.reshape(-1).clamp(0, E - 1)
@@ -89,10 +110,28 @@ class UpdateCDV(nn.Module):
             enc = posenc[:, 0, 0][:, perm].reshape(2, G, M, -1)[:, :, None]
         tokens = self.gatten(tokens, encoding=enc)
         net = tokens.reshape(G * M, DIM)[aux.inv_perm.clamp(0, G * M - 1)][None]
+        return (net, *self.heads(net))
 
-        d = gradient_clip(self.d(net))
-        w = torch.sigmoid(gradient_clip(self.w(net)))
-        return net, d, w
+
+class UpdateDPV(_UpdateTrunk):
+    """DPVO update operator: the trunk, SoftAgg over the (i,j) groups
+    (``agg_ij``), then LayerNorm -> GatedResidual -> LayerNorm ->
+    GatedResidual (``gru.0``-``gru.3``)."""
+
+    def __init__(self, p: int = 3):
+        super().__init__(p)
+        self.agg_ij = SoftAgg(DIM)
+        self.gru = nn.Sequential(LayerNorm(DIM), GatedResidual(DIM),
+                                 LayerNorm(DIM), GatedResidual(DIM))
+        self._build_heads()
+
+    def forward(self, net, inp, corr, aux: UpdateAux, n_kseg: int, n_gseg: int):
+        """As ``UpdateCDV.forward``, with aux.gseg the (i,j) group of each
+        edge in [0, n_gseg). Returns (net, d, w)."""
+        net = self.trunk(net, inp, corr, aux, n_kseg)
+        net = net + self.agg_ij(net, aux.gseg, n_gseg, mask=aux.mask)
+        net = self.gru(net)
+        return (net, *self.heads(net))
 
 
 def build_update_aux(ii, jj, kk, k0, n_kseg, M=None, n_gseg=None, E_pad=None):

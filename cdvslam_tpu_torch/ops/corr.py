@@ -17,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-# edges per chunk: bounds the gathered (chunk, P, P, D, D, C) window
+# edges per chunk at 24 channels: bounds the gathered (chunk, P, P, D, D, C)
+# windows; wider features take proportionally fewer edges per chunk
 _CHUNK = 4096
 
 
@@ -31,11 +32,12 @@ def corr_cl_plain(gmap, fmap_cl, coords, ii, jj, radius: int = 3):
     dev = gmap.device
     fflat = fmap_cl.reshape(NF * H * W, C)
     di = torch.arange(D, device=dev) - radius
+    chunk = max(_CHUNK * 24 // max(C, 24), 1)
     parts = []
-    for s in range(0, E, _CHUNK):
-        c = coords[s:s + _CHUNK]
-        g = gmap[ii[s:s + _CHUNK].long().clamp(0, K - 1)]           # (e,C,P,P)
-        fj = jj[s:s + _CHUNK].long().clamp(0, NF - 1)
+    for s in range(0, E, chunk):
+        c = coords[s:s + chunk]
+        g = gmap[ii[s:s + chunk].long().clamp(0, K - 1)]            # (e,C,P,P)
+        fj = jj[s:s + chunk].long().clamp(0, NF - 1)
         x, y = c[:, 0], c[:, 1]
         ix0 = torch.floor(x).long()
         iy0 = torch.floor(y).long()
@@ -44,9 +46,12 @@ def corr_cl_plain(gmap, fmap_cl, coords, ii, jj, radius: int = 3):
         inb = (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
         base = (fj * H * W)[:, None, None, None, None]
         idx = base + iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)     # (e,P,P,D,D)
-        f = fflat[idx.reshape(-1)].reshape(*idx.shape, C)
-        f = torch.where(inb[..., None], f, torch.zeros((), dtype=f.dtype, device=dev))
+        f = torch.index_select(fflat, 0, idx.reshape(-1)).reshape(*idx.shape, C)
         vol = torch.einsum("ecpq,epqijc->eijpq", g, f)              # (e,Dy,Dx,P,P)
+        # a tap outside the image reads zero: its dot is zero (masking the
+        # dots, not the C-wide taps)
+        vol = torch.where(inb.permute(0, 3, 4, 1, 2), vol,
+                          torch.zeros((), dtype=vol.dtype, device=dev))
         dxf = (x - torch.floor(x)).to(vol.dtype)[:, None, None]
         dyf = (y - torch.floor(y)).to(vol.dtype)[:, None, None]
         out = (1 - dxf) * (1 - dyf) * vol[:, :D - 1, :D - 1]

@@ -14,7 +14,9 @@ from .corr import corr_pyramid_plain
 
 LAUNCHES = native.LaunchCounter("corr")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_C = 24   # the kernel is built for the update operator's 24 channels
+# the channel counts the kernel is built for: CDV's XFeat (24) and DPVO's
+# BasicEncoder4 (128) matching features
+KERNEL_CS = (24, 128)
 
 
 def corr_pyramid_cl(gmap, fmap1_cl, fmap2_cl, coords, ii, jj, radius: int = 3):
@@ -33,9 +35,9 @@ def corr_pyramid_cl(gmap, fmap1_cl, fmap2_cl, coords, ii, jj, radius: int = 3):
     E = coords.shape[0]
     if radius != 3 or P != 3 or P2 != 3:
         raise ValueError("corr kernel is built for radius 3 and 3x3 patches")
-    if C != KERNEL_C or C1 != C or C2 != C or NF2 != NF:
-        raise ValueError(f"corr_pyramid_cl: the kernel takes C = {KERNEL_C} channels in "
-                         "gmap and both fmaps, and fmaps with one frame count")
+    if C not in KERNEL_CS or C1 != C or C2 != C or NF2 != NF:
+        raise ValueError(f"corr_pyramid_cl: the kernel takes C in {KERNEL_CS} channels, the "
+                         "same in gmap and both fmaps, and fmaps with one frame count")
     if gmap.dtype not in _DTYPES or fmap1_cl.dtype != gmap.dtype \
             or fmap2_cl.dtype != gmap.dtype:
         raise ValueError("corr_pyramid_cl: gmap and fmaps must share one dtype (f32 or bf16)")

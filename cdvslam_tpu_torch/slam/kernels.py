@@ -1,8 +1,9 @@
 """SLAM step functions on tensors (port of ``cdvslam_tpu.slam.kernels``).
 
 ``update_body`` is one update: reproject the window's patches, correlate
-at two pyramid levels (the corr kernel), run the update operator, two
-Gauss-Newton BA iterations, and the flow magnitude for the keyframe test.
+at two pyramid levels (the corr kernel), run the update operator (CDV's or
+DPVO's), two Gauss-Newton BA iterations, and the flow magnitude for the
+keyframe test.
 ``dynamic_class_weight`` and ``scale_adjustment`` are the seg and depth
 heads' hooks into the update.
 """
@@ -16,6 +17,7 @@ from ..ba import INFERENCE_PARAMS, ba_solve
 from ..geom import flow_mag, transform
 from ..lie import SE3, se3_exp, se3_inv, se3_log, se3_mul
 from ..models.update import UpdateAux
+from ..models.vonet import VONet
 from ..ops.corr_cuda import corr_pyramid_cl
 
 
@@ -62,12 +64,16 @@ def update_body(model, poses, patches_win, intr_full, imap_buf, gmap_buf,
                           idx.gmap_idx, idx.jjm)
     ctx = imap_buf[idx.ctx_idx][None]
 
-    # learnable-Fourier rotary encoding of the normalized patch centers
-    pc = patches_win[:, :2, P // 2, P // 2][kk]                      # (E, 2)
-    shift = torch.tensor([wd4 / 2.0, ht4 / 2.0], dtype=pc.dtype, device=pc.device)
-    p_n = ((pc[None] - shift) / max(wd4 / 2.0, ht4 / 2.0)).to(imap_buf.dtype)
-    posenc = model.posenc(p_n)
-    net_new, d, w = model.update(net[None], ctx, corrf, idx.aux, KWIN, posenc=posenc)
+    if isinstance(model, VONet):
+        # DPVO: SoftAgg over the (i, j) groups, as many segments as edges
+        net_new, d, w = model.update(net[None], ctx, corrf, idx.aux, KWIN, ii.shape[0])
+    else:
+        # learnable-Fourier rotary encoding of the normalized patch centers
+        pc = patches_win[:, :2, P // 2, P // 2][kk]                  # (E, 2)
+        shift = torch.tensor([wd4 / 2.0, ht4 / 2.0], dtype=pc.dtype, device=pc.device)
+        p_n = ((pc[None] - shift) / max(wd4 / 2.0, ht4 / 2.0)).to(imap_buf.dtype)
+        posenc = model.posenc(p_n)
+        net_new, d, w = model.update(net[None], ctx, corrf, idx.aux, KWIN, posenc=posenc)
 
     center = coords[..., P // 2, P // 2, :]
     target = center[0] + d[0].to(poses.dtype)

@@ -21,7 +21,13 @@ seg head's dynamic-class mask steers patch selection, under
 and a depth head initializes the patch depths and anchors the monocular
 scale after each update.
 
-Configurations outside this slice raise ``NotImplementedError``.
+``network="dpv"`` runs DPVO: the ``VONet`` encoders, RANDOM or
+GRADIENT_BIAS selection, the ``UpdateDPV`` operator and K1 at 128
+channels, with or without the proximity loop closure (DPV-SLAM). It has
+no DINO tokens, so the heads are refused.
+
+Configurations outside the port (the classical loop closure, the viewer)
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,12 +41,13 @@ from ..ba.global_ba import build_global_indices, global_ba_solve
 from ..config import get_cfg
 from ..lie import se3_identity, se3_inv, se3_mul
 from ..loop.proximity import edges_loop
-from ..models import CDVNet, build_update_aux
+from ..models import CDVNet, VONet, build_update_aux
 from ..models.datamaps import ADE20K_INDEX_FILT
 from ..models.dpt import DPTHead, resize
 from ..models.heads import DepthHeadFlatten, SegHeadFlatten
 from ..models.patchifier import (
-    coords_grid_with_index, pyramidify, seg_binary_score, select_random_grid, select_score,
+    coords_grid_with_index, extract_patches, pyramidify, random_candidates, seg_binary_score,
+    select_gradient_bias, select_random, select_random_grid, select_score,
 )
 from ..ops.patchify import patchify
 from .kernels import (
@@ -50,14 +57,12 @@ from .state import PatchGraph
 
 
 def _unsupported(cfg, network, viz):
-    if network != "cdv":
-        return f"network={network!r} (only 'cdv' is ported)"
+    if network not in ("cdv", "dpv"):
+        return f"network={network!r} (the port runs 'cdv' and 'dpv')"
     if viz:
         return "viz"
     if cfg.CLASSIC_LOOP_CLOSURE:
         return "CLASSIC_LOOP_CLOSURE"
-    if cfg.CENTROID_SEL_STRAT not in ("RANDOM_GRID", "SCORE"):
-        return f"CENTROID_SEL_STRAT={cfg.CENTROID_SEL_STRAT!r}"
     return None
 
 
@@ -101,11 +106,17 @@ class SLAM:
     def __init__(self, cfg=None, network="cdv", ht=480, wd=640, viz=False,
                  seed=0, device=None, state_dict=None, patch_sampler=None,
                  dtype=None, score_noise=None):
-        """``state_dict``: CDVNet weights (e.g. ``models.convert.
-        load_flax_params``); random weights from ``seed`` when None.
-        ``patch_sampler(counter) -> (coords (M, 2), init_depth (M,))``
-        replaces the seeded RANDOM_GRID draw and pre-init random depths
-        (under SCORE only its depths are used).
+        """``network``: "cdv" (CDVNet) or "dpv" (DPVO's VONet).
+        ``state_dict``: the network's weights (e.g. ``models.convert.
+        load_flax_params`` or ``vonet_state``); random weights from
+        ``seed`` when None.
+        ``patch_sampler(counter) -> (candidates (K, 2), init_depth (M,))``
+        replaces the seeded draw of the patch centres (x, y) and the
+        pre-init random depths: the M centres under RANDOM_GRID and RANDOM,
+        the 3M candidates GRADIENT_BIAS picks from (under SCORE only its
+        depths are used). Selection follows the JAX package: under "cdv"
+        SCORE, RANDOM, and RANDOM_GRID for anything else; under "dpv"
+        GRADIENT_BIAS, and RANDOM for anything else.
         ``score_noise(counter) -> (hi*wi,) uniforms in [1e-12, 1)``
         replaces the seeded draw of SCORE's Gumbel noise.
         ``dtype``: one float type for the networks and the geometry, on the
@@ -117,7 +128,8 @@ class SLAM:
         "random" (and, for the depth head, "dpt" or "dpt_random") for
         seeded random weights; a DEPTH_HEAD containing "dpt" is the DPT
         head. A missing checkpoint raises ``FileNotFoundError``. SCORE
-        needs the seg head (``ValueError`` without it)."""
+        needs the seg head (``ValueError`` without it). Under "dpv" a head
+        or FILTER_DYNAMIC_CLASS raises ``ValueError``."""
         self.cfg = cfg if cfg is not None else get_cfg()
         why = _unsupported(self.cfg, network, viz)
         if why is not None:
@@ -127,16 +139,17 @@ class SLAM:
         self.device = resolve_device(device)
         if self.device.type == "cuda" and dtype is not None:
             raise NotImplementedError("dtype is only ported for the CPU")
-        if self.device.type == "cuda" and not self.cfg.MIXED_PRECISION:
+        if network == "cdv" and self.device.type == "cuda" and not self.cfg.MIXED_PRECISION:
             raise NotImplementedError(
                 "on the card the DINO attention kernel runs in bf16: "
                 "MIXED_PRECISION=False is only ported for the CPU")
+        self.network = network
         self.ht, self.wd = ht, wd
         self.is_initialized = False
 
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            model = CDVNet()
+            model = CDVNet() if network == "cdv" else VONet()
         if state_dict is None:
             warn("Network initialized with RANDOM weights (no checkpoint).")
         else:
@@ -164,7 +177,7 @@ class SLAM:
         self.pslot_rows = np.zeros(self.N, np.int64)
 
         self.generator = torch.Generator().manual_seed(seed)
-        self.patch_sampler = patch_sampler or self._random_grid_sampler
+        self.patch_sampler = patch_sampler or self._sample_patches
         self.score_noise = score_noise or self._score_noise
         self._setup_heads()
         self.tlist = []
@@ -182,6 +195,12 @@ class SLAM:
         cfg = self.cfg
         self.seg_head = self.depth_head = self.filt_index = None
         self.depth_is_dpt = _head_set(cfg.DEPTH_HEAD) and "dpt" in cfg.DEPTH_HEAD
+        if self.network == "dpv":
+            # the JAX package sets the heads up for CDV only and ignores them here
+            if _head_set(cfg.SEG_HEAD) or _head_set(cfg.DEPTH_HEAD) or cfg.FILTER_DYNAMIC_CLASS:
+                raise ValueError("the DPVO network has no DINO tokens: SEG_HEAD, DEPTH_HEAD "
+                                 "and FILTER_DYNAMIC_CLASS need network='cdv'")
+            return
         if cfg.CENTROID_SEL_STRAT == "SCORE" and not _head_set(cfg.SEG_HEAD):
             raise ValueError("SCORE selection needs a seg head (SEG_HEAD); the port "
                              "builds no score head")
@@ -208,11 +227,19 @@ class SLAM:
     def _score_noise(self, counter):
         return torch.rand(self.hi * self.wi, generator=self.generator).clamp(min=1e-12)
 
-    def _random_grid_sampler(self, counter):
-        coords = select_random_grid(
-            self.generator, 1, self.M, self.hi, self.wi, self.P, 4.0 / 14.0,
-            self.cfg.CENTROID_SAMPLE_STRAT == "UPPERLEFT")[0]
-        return coords, torch.rand(self.M, generator=self.generator)
+    def _sample_patches(self, counter):
+        """The seeded draw of the frame's candidate centres (see
+        ``patch_sampler``) and pre-init depths."""
+        strat, M = self.cfg.CENTROID_SEL_STRAT, self.M
+        if self.network == "dpv" or strat == "RANDOM":
+            K = 3 * M if self.network == "dpv" and strat == "GRADIENT_BIAS" else M
+            coords = select_random(*random_candidates(self.generator, 1, K, self.ht4,
+                                                      self.wd4))[0]
+        else:
+            coords = select_random_grid(
+                self.generator, 1, M, self.hi, self.wi, self.P, 4.0 / 14.0,
+                self.cfg.CENTROID_SAMPLE_STRAT == "UPPERLEFT")[0]
+        return coords, torch.rand(M, generator=self.generator)
 
     def _alloc_frame_slots(self, n):
         fs = _alloc_slot(self.fslot_rows, n, self.mem)
@@ -220,13 +247,13 @@ class SLAM:
         self.fslot_rows[n], self.pslot_rows[n] = fs, ps
         return fs, ps
 
-    def _insert_frame(self, image, n, fac, initialized, intrinsics, counter):
-        """Features, patch selection and gathers, the heads, motion model,
-        depth init, and the writes of frame row n; ``counter`` is the
-        frame's id."""
+    def _patches_cdv(self, img, cand, n, counter):
+        """CDVNet's features and patches of one frame (img (H, W, 3) float on
+        the device, cand the sampler's centres): the fmap (1, 24, h, w), the
+        context rows (1, M, 384), gmap (1, M, 24, P, P) and the patch row
+        (M, 3, P, P); writes the seg and score rows of frame row n."""
         cfg, pg, M, P = self.cfg, self.pg, self.M, self.P
         dev, gd = self.device, self.gdtype
-        img = torch.as_tensor(np.asarray(image)).to(dev).float()
         image_f32 = (img / 255.0)[None]
         image_c = image_f32.to(self.fdtype)
         fmap = self.model.features_f(image_c)                        # (1,C,hf,wf)
@@ -235,11 +262,8 @@ class SLAM:
         hi, wi = tmap.shape[2:]
 
         upperleft = cfg.CENTROID_SAMPLE_STRAT == "UPPERLEFT"
-        coords, drand = self.patch_sampler(counter)
-        drand = torch.as_tensor(np.array(drand, np.float32), device=dev).reshape(M)
-        if cfg.CENTROID_SEL_STRAT != "SCORE":
-            coords = torch.as_tensor(np.array(coords, np.float32), device=dev)
-        else:
+        coords = cand
+        if cfg.CENTROID_SEL_STRAT == "SCORE":
             # seg-filtered selection: static interior tokens score 1
             dyn = self.seg_head.filt_mask(tokens[0].to(gd), self.filt_index)
             u = torch.as_tensor(np.array(self.score_noise(counter), np.float32), device=dev)
@@ -267,6 +291,39 @@ class SLAM:
             disps = torch.ones((1, hf, wf), dtype=gd, device=dev)
         grid = coords_grid_with_index(disps[None])[0]
         patch_row = patchify(grid, coords, P // 2, mode="bilinear")[0]
+        return fmap, ictx, gmap, patch_row
+
+    def _patches_dpv(self, img, cand):
+        """VONet's features and patches of one frame, as ``_patches_cdv``
+        (128 matching channels). The gradient and the gathers run in the
+        networks' type, as in the JAX package (the grid's x and y are
+        exact there: integer centres, coordinates below 256)."""
+        M, P = self.M, self.P
+        image = VONet.preprocess(img)[None].to(self.fdtype)
+        fmap, imap = self.model.features(image)
+        if self.cfg.CENTROID_SEL_STRAT == "GRADIENT_BIAS":
+            coords = select_gradient_bias(cand[None, :, 0].long(), cand[None, :, 1].long(),
+                                          image[None], M)
+        else:
+            coords = cand.reshape(1, M, 2)
+        disps = torch.ones((1, *fmap.shape[2:]), dtype=fmap.dtype, device=self.device)
+        gmap, ictx, patches = extract_patches(fmap, imap, disps, coords, P)
+        return fmap, ictx, gmap, patches[0].to(self.gdtype)
+
+    def _insert_frame(self, image, n, fac, initialized, intrinsics, counter):
+        """Features, patch selection and gathers, the heads, motion model,
+        depth init, and the writes of frame row n; ``counter`` is the
+        frame's id."""
+        cfg, pg, M, P = self.cfg, self.pg, self.M, self.P
+        dev = self.device
+        img = torch.as_tensor(np.asarray(image)).to(dev).float()
+        cand, drand = self.patch_sampler(counter)
+        cand = torch.as_tensor(np.array(cand, np.float32), device=dev).reshape(-1, 2)
+        drand = torch.as_tensor(np.array(drand, np.float32), device=dev).reshape(M)
+        if self.network == "dpv":
+            fmap, ictx, gmap, patch_row = self._patches_dpv(img, cand)
+        else:
+            fmap, ictx, gmap, patch_row = self._patches_cdv(img, cand, n, counter)
 
         pg.intrinsics_[n] = torch.as_tensor(
             np.asarray(intrinsics, np.float64) / self.RES, dtype=self.gdtype)
@@ -342,7 +399,9 @@ class SLAM:
         with a seg head) and the patch scores (under SCORE)."""
         pg, M, dev = self.pg, self.M, self.device
         k0, KWIN = self.patch_window(kk)
-        aux = build_update_aux(ii, jj, kk, k0, KWIN, M=M)._replace(mask=None)
+        # DPVO's (i, j) groups need no equal sizes: no group permutation
+        aux = build_update_aux(ii, jj, kk, k0, KWIN,
+                               M=M if self.network == "cdv" else None)._replace(mask=None)
         ctx_rows = self.pslot_rows[kk // M] * M + kk % M
         jjm = self.fslot_rows[jj]
 
@@ -360,7 +419,7 @@ class SLAM:
         weight_mul = score_win = None
         if self.cfg.FILTER_DYNAMIC_CLASS and self.seg_head is not None:
             weight_mul = dynamic_class_weight(pg.seg_, self.filt_index, dt(kk))
-        if self.cfg.CENTROID_SEL_STRAT == "SCORE":
+        if self.network == "cdv" and self.cfg.CENTROID_SEL_STRAT == "SCORE":
             score_win = pg.score_[k0:k0 + KWIN]
         poses, patches_win, net, target, weight, delta_norm, mm = update_body(
             self.model, pg.poses_, pg.patches_[k0:k0 + KWIN], pg.intrinsics_,

@@ -45,12 +45,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
      openings counted, scale_adjustment on a crafted pose pair on the card
      against the CPU; then 40 frames with DEPTH_HEAD="dpt_random": depths
      and poses finite, ms per frame insert (synchronize on each side)
+  8  the DPVO path ("8-corr" first: K1 at C = 128 on the phase-1 layouts,
+     the same rules, times at E = 9600): get_cfg() merged with
+     config/default_dpvo.yaml (RANDOM selection), SLAM(cfg, "dpv", 480,
+     752), MOTION_PROBE_THR=-1, seeded random weights and phase 4's frames,
+     60 warm-up frames, one 100-frame timed window, terminate(); poses
+     finite, corr launched once per update and always at C = 128, flash
+     attention never; then 40 frames with GRADIENT_BIAS (poses finite,
+     every selected centre inside [1, dim - 1)) and a DPV-SLAM run
+     (LOOP_CLOSURE=True with phase 6's cut KEYFRAME_THRESH=0, LC_FRAMES
+     frames: loop edges and global BAs fire, poses finite); K1 is checked
+     and timed on the last warm-up update's inputs ("8-update") and on the
+     first update with loop edges ("8-loop-update")
 
 Then a kernels line (a list of per-kernel records: launches on the main
 path, max error, kernel / plain / library times and the roofline bound;
-K1's record adds the phase-5 times as ms_main_path and friends and the
-phase-6 times as ms_loop_update and friends; both records add
-launches_loop_path and launches_cdvo_pp_path),
+K1's record adds the phase-5 times as ms_main_path and friends, the
+phase-6 times as ms_loop_update and friends, and phase 8's as ms_c128,
+ms_dpvo_update, ms_dpv_loop_update and friends; both records add
+launches_loop_path, launches_cdvo_pp_path and launches_dpvo_path),
 the nvidia-smi line, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -59,9 +72,10 @@ steady-state frames of the main path timed and 20 more under
 torch.profiler: device busy time and idle share (busy over the untraced
 wall time), launches per frame, the port's two kernels and the top
 kernels by device time; then the same for the loop-closure path of
-phase 6 after 100 warm-up frames and for the CDVO++ path of phase 7 after
-60 (with the heads' device time and launches per frame). The full tables
-go to DIR/profile_{main,loop,cdvo_pp}_path.txt. It prints neither the
+phase 6 after 100 warm-up frames, for the CDVO++ path of phase 7 after
+60 (with the heads' device time and launches per frame) and for the DPVO
+path of phase 8 after 60. The full tables go to
+DIR/profile_{main,loop,cdvo_pp,dpvo}_path.txt. It prints neither the
 kernels line nor the ok line.
 It never imports JAX or the JAX package. Needs one CUDA card.
 """
@@ -125,8 +139,9 @@ def phase0():
     return smi
 
 
-def _corr_inputs(gen, dtype, E=E, layout="random"):
-    """Inputs at the main-path shapes. layout: "random" (the phase-1 draw:
+def _corr_inputs(gen, dtype, E=E, layout="random", C=C):
+    """Inputs at the main-path shapes with C channels (24: the CDV paths,
+    128: the DPVO path). layout: "random" (the phase-1 draw:
     pixels jittered +-1.5 px around random centers, 5% of the centers left
     of the image), "border" (centers past every border), "rigid" (3x3
     patches of 1 px spacing plus +-0.2 px jitter) or "scattered" (+-20 px
@@ -216,7 +231,7 @@ def _corr_record(args):
     from cdvslam_tpu_torch.ops import corr_cuda
     from cdvslam_tpu_torch.ops.corr import corr_pyramid_plain
     nbytes = _corr_bytes(*args)
-    flops = args[3].shape[0] * 9 * 64 * C * 2 * 2
+    flops = args[3].shape[0] * 9 * 64 * args[0].shape[1] * 2 * 2
     rounds = [cuda_time(lambda: corr_cuda.corr_pyramid_cl(*args), 20) for _ in range(5)]
     return {"ms": statistics.median(rounds), "rounds_ms": rounds,
             "plain_ms": cuda_time(lambda: corr_pyramid_plain(*args), 3),
@@ -224,17 +239,19 @@ def _corr_record(args):
             "bytes": nbytes, "box_share": _box_share(args[3])}
 
 
-def phase1():
+def phase1(channels=C, phase=1, seed=1):
+    """K1 against its plain version on the layouts below, at ``channels``
+    (phase 1: 24, the CDV paths; phase "8-corr": 128, the DPVO path)."""
     import torch
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    out = {"phase": 1, "checks": {}}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {"phase": phase, "C": channels, "checks": {}}
     worst, ok = 0.0, True
     cases = [("random", E), ("border", E), ("rigid", E), ("scattered", E),
              ("random", 0), ("random", 777)]
     rec = None
     for layout, n in cases:
         for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            args = _corr_inputs(gen, dtype, n, layout)
+            args = _corr_inputs(gen, dtype, n, layout, C=channels)
             err, rel, shape = _corr_check(args)
             good = shape == (n, 7, 7, 3, 3, 2) and (err <= 1e-4 if name == "f32" else rel <= 5e-3)
             out["checks"][f"{layout}_E{n}_{name}"] = {
@@ -245,9 +262,11 @@ def phase1():
             if layout == "random" and n == E and name == "bf16":
                 rec = _corr_record(args)
     out["ok"] = ok
+    if phase != 1:
+        out.update({k: rec[k] for k in ("ms", "rounds_ms", "plain_ms", "bound_ms", "bytes")})
     emit(out)
     if not ok:
-        raise SystemExit("phase 1: corr disagrees with plain")
+        raise SystemExit(f"phase {phase}: corr disagrees with plain")
     rec["max_abs_err"] = worst
     return rec
 
@@ -405,12 +424,14 @@ def phase4(smi):
 
 def corr_on_captured(phase, args):
     """K1 on one update's own inputs, captured from a path's run: phase 5
-    (a steady main-path update) and phase "6-corr" (an update with loop
-    edges)."""
+    (a steady main-path update), phase "6-corr" (an update with loop
+    edges), and phase 8's "8-update" and "8-loop-update" (the same on the
+    DPVO path, C = 128)."""
     err, rel, _ = _corr_check(args)
     rec = _corr_record(args)
     ok = rel <= 5e-3
-    emit({"phase": phase, "E": args[3].shape[0], "max_abs": err, "rel": rel,
+    emit({"phase": phase, "C": args[0].shape[1], "E": args[3].shape[0], "max_abs": err,
+          "rel": rel,
           "box_share": rec["box_share"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
           "bound_ms": rec["bound_ms"], "ok": ok})
     if not ok:
@@ -418,14 +439,19 @@ def corr_on_captured(phase, args):
     return rec
 
 
-def _loop_cfg():
-    """get_cfg() merged with config/default_cdvslam.yaml (its "KEY: value"
-    lines; no yaml module needed), proximity backend only, no motion probe,
-    KEYFRAME_THRESH=0."""
+def _preset(name):
+    """get_cfg() merged with config/<name> (its "KEY: value" lines; no yaml
+    module needed)."""
     from cdvslam_tpu_torch.config import get_cfg
-    preset = (ROOT / "config" / "default_cdvslam.yaml").read_text().splitlines()
-    cfg = get_cfg().merge_from_list(
+    preset = (ROOT / "config" / name).read_text().splitlines()
+    return get_cfg().merge_from_list(
         [t.strip() for ln in preset if ":" in ln for t in ln.split(":", 1)])
+
+
+def _loop_cfg():
+    """get_cfg() merged with config/default_cdvslam.yaml, proximity backend
+    only, no motion probe, KEYFRAME_THRESH=0."""
+    cfg = _preset("default_cdvslam.yaml")
     cfg.CLASSIC_LOOP_CLOSURE = False
     cfg.MOTION_PROBE_THR = -1.0
     cfg.KEYFRAME_THRESH = 0.0
@@ -562,10 +588,7 @@ def phase6(smi):
 def _cdvo_pp_cfg(depth_head="random"):
     """get_cfg() merged with config/default_cdvo++.yaml, random seeded heads,
     no motion probe."""
-    from cdvslam_tpu_torch.config import get_cfg
-    preset = (ROOT / "config" / "default_cdvo++.yaml").read_text().splitlines()
-    cfg = get_cfg().merge_from_list(
-        [t.strip() for ln in preset if ":" in ln for t in ln.split(":", 1)])
+    cfg = _preset("default_cdvo++.yaml")
     cfg.SEG_HEAD, cfg.DEPTH_HEAD = "random", depth_head
     cfg.MOTION_PROBE_THR = -1.0
     return cfg
@@ -745,6 +768,186 @@ def _dpt_subrun(frames, intr, nframes=40):
                            flash_attn.LAUNCHES.count - attn0 == 12 * nframes}}
 
 
+def _dpvo_cfg(strategy=None, loop=False):
+    """get_cfg() merged with config/default_dpvo.yaml (RANDOM selection), no
+    motion probe; ``strategy`` replaces the selection; ``loop``: the
+    proximity loop closure with phase 6's cut, KEYFRAME_THRESH=0."""
+    cfg = _preset("default_dpvo.yaml")
+    cfg.MOTION_PROBE_THR = -1.0
+    if strategy is not None:
+        cfg.CENTROID_SEL_STRAT = strategy
+    if loop:
+        cfg.LOOP_CLOSURE = True
+        cfg.KEYFRAME_THRESH = 0.0
+    return cfg
+
+
+def phase8(smi):
+    """The DPVO path at 480 x 752 (160 frames), a GRADIENT_BIAS sub-run and
+    a DPV-SLAM sub-run; returns the launch counts of the 160-frame run and
+    the corr inputs of its last warm-up update and of one loop update."""
+    import numpy as np
+    import torch
+    from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
+    from cdvslam_tpu_torch.slam import SLAM
+    from cdvslam_tpu_torch.slam import kernels as slam_kernels
+    WARM, WIN = 60, 100
+    frames, intr = _frames()
+    kernel = slam_kernels.corr_pyramid_cl
+    channels, captured, capture = [], {}, [False]
+
+    def counted(*args):
+        channels.append(args[0].shape[1])
+        if capture[0]:
+            captured["steady"] = tuple(a.clone() for a in args[:6])
+        return kernel(*args)
+
+    slam = SLAM(_dpvo_cfg(), network="dpv", ht=480, wd=752, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    corr_cuda.LAUNCHES.reset()
+    flash_attn.LAUNCHES.reset()
+    slam_kernels.corr_pyramid_cl = counted
+    try:
+        t_start = time.perf_counter()
+        for f in range(WARM):
+            capture[0] = f == WARM - 1   # the last warm-up frame's update (its only one)
+            slam(f, frames[f % 8], intr)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t_start
+        capture[0] = False
+        upd0, corr0 = slam.stats["updates"], corr_cuda.LAUNCHES.count
+        t0 = time.perf_counter()
+        for f in range(WARM, WARM + WIN):
+            slam(f, frames[f % 8], intr)
+        torch.cuda.synchronize()
+        win_s = time.perf_counter() - t0
+        win = {"updates": slam.stats["updates"] - upd0, "corr": corr_cuda.LAUNCHES.count - corr0}
+        edges = slam.pg.E
+        poses, _ = slam.terminate()
+        torch.cuda.synchronize()
+    finally:
+        slam_kernels.corr_pyramid_cl = kernel
+    counts = {"corr": corr_cuda.LAUNCHES.count, "dino_flash_attn": flash_attn.LAUNCHES.count}
+    frames_run = WARM + WIN
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = dict(slam.stats)
+    checks = {
+        "poses_shape": list(poses.shape) == [frames_run, 7],
+        "poses_finite": bool(np.isfinite(poses).all()),
+        "corr_1_per_update": counts["corr"] == stats["updates"] == len(channels)
+                             and win["corr"] == win["updates"],
+        "corr_at_C128": set(channels) == {128},
+        "no_flash_attn": counts["dino_flash_attn"] == 0,
+        "one_update_per_frame": win["updates"] == WIN,
+        "corr_inputs_captured": "steady" in captured,
+    }
+    del slam
+    torch.cuda.empty_cache()
+    gb = _gradient_bias_subrun(frames, intr)
+    checks.update(gb.pop("checks"))
+    loop = _dpv_slam_subrun(frames, intr)
+    checks.update(loop.pop("checks"))
+    loop_args = loop.pop("corr_args")
+    ok = all(checks.values())
+    emit({"phase": 8, "fps": WIN / win_s, "window_s": win_s, "warmup_s": warm_s,
+          "frames": frames_run, "updates": stats["updates"],
+          "keyframe_removals": stats["keyframe_removals"], "steady_edges": edges,
+          "launches": counts, "checks": checks, "card": smi, "peak_mem_gb": peak_gb,
+          "gradient_bias_subrun": gb, "dpv_slam_subrun": loop,
+          "cuts": {"weights": "random (seed 0)", "frames": frames_run,
+                   "dpv_slam": f"KEYFRAME_THRESH=0, {LC_FRAMES} frames"}, "ok": ok})
+    if not ok:
+        raise SystemExit(f"phase 8: DPVO path checks failed: {checks}")
+    return counts, captured["steady"], loop_args, loop["launches"]
+
+
+def _gradient_bias_subrun(frames, intr, nframes=40):
+    """CENTROID_SEL_STRAT="GRADIENT_BIAS" for nframes frames: the selected
+    centres' range and the checks."""
+    import numpy as np
+    import torch
+    from cdvslam_tpu_torch.slam import SLAM
+    from cdvslam_tpu_torch.slam import runtime
+    select, picked = runtime.select_gradient_bias, []
+
+    def recorded(*args):
+        coords = select(*args)
+        picked.append(torch.stack([coords[..., 0].amin(), coords[..., 0].amax(),
+                                   coords[..., 1].amin(), coords[..., 1].amax()]))
+        return coords
+
+    slam = SLAM(_dpvo_cfg("GRADIENT_BIAS"), network="dpv", ht=480, wd=752, seed=0)
+    runtime.select_gradient_bias = recorded
+    try:
+        for f in range(nframes):
+            slam(f, frames[f % 8], intr)
+        poses, _ = slam.terminate()
+    finally:
+        runtime.select_gradient_bias = select
+    xmin, xmax, ymin, ymax = torch.stack(picked).cpu().T
+    x_lo, x_hi = float(xmin.min()), float(xmax.max())
+    y_lo, y_hi = float(ymin.min()), float(ymax.max())
+    return {"frames": nframes, "selections": len(picked), "x_range": [x_lo, x_hi],
+            "y_range": [y_lo, y_hi], "keyframe_removals": slam.stats["keyframe_removals"],
+            "checks": {
+                "gb_poses_finite": bool(np.isfinite(poses).all()),
+                "gb_one_selection_per_frame": len(picked) == nframes,
+                "gb_centres_inside": x_lo >= 1 and x_hi < slam.wd4 - 1
+                                     and y_lo >= 1 and y_hi < slam.ht4 - 1}}
+
+
+def _dpv_slam_subrun(frames, intr):
+    """default_dpvo.yaml with LOOP_CLOSURE=True (phase 6's cut) for
+    LC_FRAMES frames: loop edges, global BAs, launches, and the corr inputs
+    of the first update that holds loop edges."""
+    import numpy as np
+    import torch
+    from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
+    from cdvslam_tpu_torch.slam import SLAM
+    from cdvslam_tpu_torch.slam import kernels as slam_kernels
+    cfg = _dpvo_cfg(loop=True)
+    slam = SLAM(cfg, network="dpv", ht=480, wd=752, seed=0)
+    kernel, captured, channels = slam_kernels.corr_pyramid_cl, {}, []
+
+    def capture_corr(*args):
+        pg = slam.pg
+        channels.append(args[0].shape[1])
+        if "corr" not in captured and (pg.ii < pg.n - cfg.REMOVAL_WINDOW - 1).any():
+            captured["corr"] = tuple(a.clone() for a in args[:6])
+        return kernel(*args)
+
+    torch.cuda.reset_peak_memory_stats()
+    corr_cuda.LAUNCHES.reset()
+    flash_attn.LAUNCHES.reset()
+    slam_kernels.corr_pyramid_cl = capture_corr
+    peak_E = 0
+    try:
+        t0 = time.perf_counter()
+        for f in range(LC_FRAMES):
+            slam(f, frames[f % 8], intr)
+            peak_E = max(peak_E, slam.pg.E)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        poses, _ = slam.terminate()
+        torch.cuda.synchronize()
+    finally:
+        slam_kernels.corr_pyramid_cl = kernel
+    counts = {"corr": corr_cuda.LAUNCHES.count, "dino_flash_attn": flash_attn.LAUNCHES.count}
+    return {"frames": LC_FRAMES, "keyframes": slam.pg.n, "fps": LC_FRAMES / run_s,
+            "loop_edges": slam.stats["loop_edges"], "global_ba": slam.stats["global_ba"],
+            "updates": slam.stats["updates"], "peak_active_edges": peak_E,
+            "launches": counts, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "corr_args": captured.get("corr"),
+            "checks": {
+                "lc_loop_edges": slam.stats["loop_edges"] > 0,
+                "lc_global_ba": slam.stats["global_ba"] > 0,
+                "lc_poses_finite": bool(np.isfinite(poses).all()),
+                "lc_corr_1_per_update_at_C128": counts["corr"] == slam.stats["updates"]
+                                                == len(channels) and set(channels) == {128},
+                "lc_no_flash_attn": counts["dino_flash_attn"] == 0,
+                "lc_loop_corr_inputs_captured": "corr" in captured}}
+
+
 def _tree_kernels(event):
     """Device time (us) and launches of the kernels under a profiler event."""
     us = sum(k.duration for k in event.kernels)
@@ -823,9 +1026,9 @@ def _profile_window(slam, frames, intr, start, win, table_path):
 
 def profile_paths(out_dir):
     """The main path (60 warm-up frames), the loop-closure path (100
-    warm-up frames: about 78 keyframes past the first loop detection) and
-    the CDVO++ path (60 warm-up frames), 20 frames timed and 20 traced
-    each."""
+    warm-up frames: about 78 keyframes past the first loop detection), the
+    CDVO++ path and the DPVO path (60 warm-up frames each), 20 frames
+    timed and 20 traced each."""
     import torch
     from cdvslam_tpu_torch.config import get_cfg
     from cdvslam_tpu_torch.slam import SLAM
@@ -833,9 +1036,11 @@ def profile_paths(out_dir):
     out_dir.mkdir(parents=True, exist_ok=True)
     main_cfg = get_cfg()
     main_cfg.MOTION_PROBE_THR = -1.0
-    for path, cfg, warm in (("main", main_cfg, 60), ("loop", _loop_cfg(), 100),
-                            ("cdvo_pp", _cdvo_pp_cfg(), 60)):
-        slam = SLAM(cfg, network="cdv", ht=480, wd=752, seed=0)
+    for path, network, cfg, warm in (("main", "cdv", main_cfg, 60),
+                                     ("loop", "cdv", _loop_cfg(), 100),
+                                     ("cdvo_pp", "cdv", _cdvo_pp_cfg(), 60),
+                                     ("dpvo", "dpv", _dpvo_cfg(), 60)):
+        slam = SLAM(cfg, network=network, ht=480, wd=752, seed=0)
         _label_heads(slam)
         for f in range(warm):
             slam(f, frames[f % 8], intr)
@@ -852,9 +1057,9 @@ def profile_paths(out_dir):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", type=Path,
-                    help="run phase 0 and the profiles of the main, the loop-closure and "
-                         "the CDVO++ path only; the tables go to "
-                         "DIR/profile_{main,loop,cdvo_pp}_path.txt")
+                    help="run phase 0 and the profiles of the main, the loop-closure, "
+                         "the CDVO++ and the DPVO path only; the tables go to "
+                         "DIR/profile_{main,loop,cdvo_pp,dpvo}_path.txt")
     args = ap.parse_args()
     if not (ROOT / "cdvslam_tpu_torch").is_dir():
         print("chip_smoke.py: cdvslam_tpu_torch/ is not beside this script", file=sys.stderr)
@@ -878,6 +1083,10 @@ def main():
     lc_counts, lc_captured = phase6(smi)
     loop_rec = corr_on_captured("6-corr", lc_captured)
     pp_counts = phase7(smi)
+    c128_rec = phase1(128, "8-corr", seed=8)
+    dpvo_counts, dpvo_captured, dpv_loop_captured, dpv_loop_counts = phase8(smi)
+    dpvo_rec = corr_on_captured("8-update", dpvo_captured)
+    dpv_loop_rec = corr_on_captured("8-loop-update", dpv_loop_captured)
 
     ops_ms, bytes_ms = attn_rec["bound"]
     kernels = [
@@ -898,7 +1107,21 @@ def main():
          "E_loop_update": lc_captured[3].shape[0], "ms_loop_update": loop_rec["ms"],
          "plain_ms_loop_update": loop_rec["plain_ms"],
          "bound_ms_loop_update": loop_rec["bound_ms"],
-         "box_share_loop_update": loop_rec["box_share"]},
+         "box_share_loop_update": loop_rec["box_share"],
+         "ms_c128": c128_rec["ms"], "plain_ms_c128": c128_rec["plain_ms"],
+         "bound_ms_c128": c128_rec["bound_ms"], "max_abs_err_c128": c128_rec["max_abs_err"],
+         "bytes_c128": c128_rec["bytes"], "rounds_ms_c128": c128_rec["rounds_ms"],
+         "launches_dpvo_path": dpvo_counts["corr"],
+         "launches_dpv_slam_path": dpv_loop_counts["corr"],
+         "E_dpvo_update": dpvo_captured[3].shape[0], "ms_dpvo_update": dpvo_rec["ms"],
+         "plain_ms_dpvo_update": dpvo_rec["plain_ms"],
+         "bound_ms_dpvo_update": dpvo_rec["bound_ms"],
+         "box_share_dpvo_update": dpvo_rec["box_share"],
+         "E_dpv_loop_update": dpv_loop_captured[3].shape[0],
+         "ms_dpv_loop_update": dpv_loop_rec["ms"],
+         "plain_ms_dpv_loop_update": dpv_loop_rec["plain_ms"],
+         "bound_ms_dpv_loop_update": dpv_loop_rec["bound_ms"],
+         "box_share_dpv_loop_update": dpv_loop_rec["box_share"]},
         {"name": "dino_flash_attn", "route": "cuda",
          "source": "cdvslam_tpu_torch/csrc/flash_attn.cu",
          "replaces": "cdvslam_tpu/models/dinov2.py:53",
@@ -909,6 +1132,7 @@ def main():
          "library_ms": attn_rec["library_ms"],
          "launches_loop_path": lc_counts["dino_flash_attn"],
          "launches_cdvo_pp_path": pp_counts["dino_flash_attn"],
+         "launches_dpvo_path": dpvo_counts["dino_flash_attn"],
          "per": "one call, packed qkv (1, 1891, 1152) bf16 -> (1, 1891, 384); ms and "
                 "library_ms are medians of 5 alternating rounds of 20 calls",
          "rounds": attn_rec["rounds"]},

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Time a port kernel against another version of its source on one GPU.
 
-    python3 kernel_ab.py corr OTHER.cu         # csrc/corr.cu against OTHER.cu
-    python3 kernel_ab.py flash_attn OTHER.cu   # csrc/flash_attn.cu against OTHER.cu
+    python3 kernel_ab.py corr OTHER.cu                  # csrc/corr.cu against OTHER.cu
+    python3 kernel_ab.py corr OTHER.cu --channels 128   # the same at DPVO's 128 channels
+    python3 kernel_ab.py flash_attn OTHER.cu            # csrc/flash_attn.cu against OTHER.cu
 
 OTHER.cu must export the same C function as the kernel it stands in for
 (``corr_pyramid_forward`` or ``flash_attn_qkv_forward``). Both are built
 with the same nvcc flags and called on the same inputs at the main-path
-shape (chip_smoke.py's phase-1 draw for corr; packed qkv (1, 1891, 1152)
+shape (chip_smoke.py's phase-1 draw for corr, at 24 channels unless
+``--channels`` says 128; packed qkv (1, 1891, 1152)
 bf16 for flash_attn, with SDPA on the same tensor beside them), in 10
 rounds of 30 calls whose order alternates. Prints one JSON line: the
 card, the max difference between the two outputs, the median ms of each
 and every round. Needs one CUDA card; imports nothing of JAX.
 """
+import argparse
 import ctypes
 import json
 import statistics
@@ -24,7 +27,13 @@ ROOT = Path(__file__).resolve().parent
 
 
 def main():
-    name, other = sys.argv[1], Path(sys.argv[2]).resolve()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("kernel", choices=("corr", "flash_attn"))
+    ap.add_argument("other", type=Path, help="the other version's .cu source")
+    ap.add_argument("--channels", type=int, choices=(24, 128), default=24,
+                    help="corr only: the channel count of gmap and the fmaps")
+    args = ap.parse_args()
+    name, other = args.kernel, args.other.resolve()
     sys.path.insert(0, str(ROOT))
     import torch
     import torch.nn.functional as F
@@ -45,17 +54,17 @@ def main():
 
     if name == "corr":
         gen = torch.Generator(device="cuda").manual_seed(1)
-        args = cs._corr_inputs(gen, torch.bfloat16)
-        g, f1, f2, c, ii, jj = args
+        inputs = cs._corr_inputs(gen, torch.bfloat16, C=args.channels)
+        g, f1, f2, c, ii, jj = inputs
 
         def other_fn():
             out = torch.empty((c.shape[0], 7, 7, 3, 3, 2), dtype=g.dtype, device="cuda")
             native.check(fn(g.data_ptr(), f1.data_ptr(), f2.data_ptr(), c.data_ptr(),
                             ii.data_ptr(), jj.data_ptr(), out.data_ptr(), c.shape[0],
-                            g.shape[0], f1.shape[0], cs.C, f1.shape[1], f1.shape[2],
+                            g.shape[0], f1.shape[0], g.shape[1], f1.shape[1], f1.shape[2],
                             f2.shape[1], f2.shape[2], 1, stream()), symbol)
             return out
-        fns = {"current": lambda: corr_cuda.corr_pyramid_cl(*args), "other": other_fn}
+        fns = {"current": lambda: corr_cuda.corr_pyramid_cl(*inputs), "other": other_fn}
     else:
         B, h, L, d = cs.ATTN_SHAPE
         gen = torch.Generator(device="cuda").manual_seed(2)
@@ -78,6 +87,7 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"kernel": name, "other": other.name, "card": smi, "max_abs_diff": diff,
+                      "channels": args.channels if name == "corr" else None,
                       "median_ms": {k_: statistics.median(v_) for k_, v_ in rounds.items()},
                       "rounds_ms": rounds}))
     return 0

@@ -3,7 +3,7 @@
 Marked ``cuda``: they skip on a host without a CUDA card (run them on the
 card with ``python -m pytest tests/test_torch_cuda.py -q``; chip_smoke.py
 runs the same comparisons at the main-path shapes). Tolerances: corr f32
-1e-4 absolute (f32 dots of 24 products summed in another order); corr
+1e-4 absolute (f32 dots of 24 or 128 products summed in another order); corr
 bf16 5e-3 of max |plain| against the plain version evaluated in f32 on the
 same bf16 values; flash attention bf16 max abs 2e-2 and relative Frobenius
 1e-2 (bf16 probabilities against bf16 softmax then matmul); global BA on
@@ -12,18 +12,27 @@ the card against the CPU port on the same float32 inputs 1e-4 on poses and
 solves on the card bitwise equal; the heads on the card against the CPU
 port in float32 with TF32 off: seg logits 1e-4 with equal classes, linear
 depth 1e-4 relative, DPT and its resize 1e-4 of max |CPU| (cuDNN and the
-CPU sum the convolutions in other orders).
+CPU sum the convolutions in other orders); the DPVO SLAM on the card in
+float32 (TF32 off) against the CPU port on the same seeded weights and
+frames: the same patch centres, one corr launch per update at C = 128, and
+poses within 1e-3 per component (the encoders, the update operator and 16
+BAs summed in other orders).
 """
+from pathlib import Path
+
+import numpy as np
 import pytest
 import torch
 
 from cdvslam_tpu_torch.ba.global_ba import build_global_indices, global_ba_solve
+from cdvslam_tpu_torch.config import get_cfg
 from cdvslam_tpu_torch.geom import transform
 from cdvslam_tpu_torch.lie import SE3, se3_exp, se3_mul
 from cdvslam_tpu_torch.models.dpt import DPTHead, resize
 from cdvslam_tpu_torch.models.heads import DepthHeadFlatten, SegHeadFlatten
 from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
 from cdvslam_tpu_torch.ops.corr import corr_pyramid_plain
+from cdvslam_tpu_torch.slam import SLAM
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
@@ -86,6 +95,14 @@ def test_corr_kernel_cases(card, dtype, E, layout):
     _check_corr(_corr_case(card, dtype, E=E, layout=layout), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,layout", [(0, "border"), (1, "border"), (777, "rigid"),
+                                      (777, "scattered"), (1203, "border")])
+def test_corr_kernel_c128_cases(card, dtype, E, layout):
+    """DPVO's 128 channels: the chunked box (bf16) and the global branch."""
+    _check_corr(_corr_case(card, dtype, E=E, C=128, layout=layout), dtype)
+
+
 @pytest.mark.parametrize("L", [1, 64, 65, 301, 1891])
 def test_flash_attention_matches_plain(card, L):
     g = torch.Generator(device=card).manual_seed(1)
@@ -124,9 +141,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     unaligned = f1.new_empty(f1.numel() + 1)[1:].view(f1.shape).copy_(f1)
     with pytest.raises(ValueError):
         corr_cuda.corr_pyramid_cl(gmap, unaligned, f2, coords, ii, jj)
-    gmap20, f1, f2, coords, ii, jj = _corr_case(card, torch.bfloat16, C=20)
-    with pytest.raises(ValueError):
-        corr_cuda.corr_pyramid_cl(gmap20, f1, f2, coords, ii, jj)
+    for c in (20, 64):
+        gmap_c, f1, f2, coords, ii, jj = _corr_case(card, torch.bfloat16, C=c)
+        with pytest.raises(ValueError):
+            corr_cuda.corr_pyramid_cl(gmap_c, f1, f2, coords, ii, jj)
+    gmap128, *_ = _corr_case(card, torch.bfloat16, C=128)
+    with pytest.raises(ValueError):                      # 128 in gmap, 64 in the fmaps
+        corr_cuda.corr_pyramid_cl(gmap128, f1, f2, coords, ii, jj)
 
 
 def _global_problem(NF=40, M=16, t0=2):
@@ -196,3 +217,30 @@ def test_heads_on_the_card_match_the_cpu(card, monkeypatch):
     disp_want = resize(1.0 / want[2], (120, 188))
     disp = resize(1.0 / got[2], (120, 188)).cpu()
     assert (disp - disp_want).abs().max().item() <= 1e-4 * disp_want.abs().max().item()
+
+
+@pytest.mark.parametrize("strategy", ["RANDOM", "GRADIENT_BIAS"])
+def test_dpvo_slam_on_the_card_matches_the_cpu(card, monkeypatch, strategy):
+    """12 random 64 x 96 frames, KEYFRAME_THRESH=0 (no removal to flip)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = get_cfg().merge_from_file(Path(__file__).resolve().parents[1] / "config"
+                                    / "default_dpvo.yaml")
+    cfg.update(PATCHES_PER_FRAME=16, BUFFER_SIZE=32, MOTION_PROBE_THR=-1.0, KEYFRAME_THRESH=0.0,
+               MIXED_PRECISION=False, CENTROID_SEL_STRAT=strategy)
+    rng = np.random.RandomState(0)
+    frames = [(rng.rand(64, 96, 3) * 255).astype(np.uint8) for _ in range(12)]
+    intr = np.array([80.0, 80.0, 48.0, 32.0], np.float32)
+    runs = {}
+    for dev in ("cpu", card):
+        slam = SLAM(cfg, "dpv", ht=64, wd=96, device=dev, seed=3)
+        before = corr_cuda.LAUNCHES.count
+        for f, img in enumerate(frames):
+            slam(f, img, intr)
+        poses, _ = slam.terminate()
+        launches = corr_cuda.LAUNCHES.count - before
+        runs[str(dev)] = (poses, slam.pg.patches_[: slam.n * 16, :2].cpu(), slam.stats, launches)
+    (cp, cc, cs, cl), (gp, gc, gs, gl) = runs["cpu"], runs[str(card)]
+    assert cl == 0 and gl == gs["updates"] == cs["updates"] > 0
+    assert torch.equal(gc, cc)
+    assert np.isfinite(gp).all() and np.abs(gp - cp).max() <= 1e-3

@@ -1,5 +1,6 @@
 """Package rules of the port: no JAX, the card by default, configs
-outside the ported slice refused, and the heads' set-up rules."""
+outside the ported slice refused, and the heads' set-up rules (CDV) and
+refusal (DPVO)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -37,12 +38,7 @@ def test_slam_defaults_to_the_card_and_raises_without_one(monkeypatch):
         SLAM(get_cfg(), "cdv", ht=64, wd=96)
 
 
-@pytest.mark.parametrize("change", [
-    {"network": "dpv"}, {"viz": True}, {"LOOP_CLOSURE": True, "CLASSIC_LOOP_CLOSURE": True},
-    {"CLASSIC_LOOP_CLOSURE": True}, {"CENTROID_SEL_STRAT": "RANDOM"},
-    {"CENTROID_SEL_STRAT": "GRADIENT_BIAS"},
-])
-def test_configs_outside_the_slice_raise(change):
+def _build(change, error):
     cfg = get_cfg()
     kwargs = {"device": "cpu"}
     for k, v in change.items():
@@ -50,8 +46,41 @@ def test_configs_outside_the_slice_raise(change):
             kwargs[k] = v
         else:
             cfg[k] = v
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         SLAM(cfg, ht=64, wd=96, **kwargs)
+
+
+@pytest.mark.parametrize("change", [
+    {"network": "dpv", "CLASSIC_LOOP_CLOSURE": True}, {"viz": True},
+    {"LOOP_CLOSURE": True, "CLASSIC_LOOP_CLOSURE": True}, {"CLASSIC_LOOP_CLOSURE": True},
+    {"network": "dpv", "viz": True}, {"network": "vonet"},
+])
+def test_configs_outside_the_slice_raise(change):
+    _build(change, NotImplementedError)
+
+
+@pytest.mark.parametrize("change", [
+    {"SEG_HEAD": "random"}, {"DEPTH_HEAD": "dpt_random"}, {"FILTER_DYNAMIC_CLASS": True},
+])
+def test_heads_under_dpv_raise(change):
+    """The JAX package sets the heads up for CDV only and ignores them
+    under DPVO; the port refuses them (ROADMAP Queue 3)."""
+    _build({"network": "dpv", **change}, ValueError)
+
+
+@pytest.mark.parametrize("strategy", ["RANDOM", "GRADIENT_BIAS", "RANDOM_GRID", "SCORE"])
+def test_dpvo_builds_on_the_cpu_with_every_strategy(strategy):
+    """DPVO draws GRADIENT_BIAS, and RANDOM for anything else, as the JAX
+    package does; the gmap and fmap rings take its 128 channels."""
+    cfg = get_cfg().merge_from_file(Path(__file__).resolve().parents[1] / "config"
+                                    / "default_dpvo.yaml")
+    cfg.CENTROID_SEL_STRAT = strategy
+    slam = SLAM(cfg, "dpv", ht=64, wd=96, device="cpu")
+    assert slam.seg_head is None and slam.depth_head is None
+    assert slam.pg.gmap_.shape[1:] == (128, 3, 3) and slam.pg.fmap1_.shape[1:] == (16, 24, 128)
+    cand, depth = slam.patch_sampler(0)
+    assert cand.shape == ((3 if strategy == "GRADIENT_BIAS" else 1) * 96, 2) and depth.shape == (96,)
+    assert cand.min() >= 1 and cand[:, 0].max() < 23 and cand[:, 1].max() < 15
 
 
 def test_mixed_precision_off_is_refused_on_the_card():

@@ -1,15 +1,19 @@
 """Run the JAX SLAM and the port's SLAM side by side on the same frames.
 
-Shared by the whole-slice parity tests. Both runs use the CDV network at
-64 x 96 with MIXED_PRECISION=False, PATCHES_PER_FRAME=8, BUFFER_SIZE=32,
+Shared by the whole-slice parity tests. Both runs use the CDV network
+(or, with ``network="dpv"``, DPVO's VONet) at 64 x 96 with
+MIXED_PRECISION=False, PATCHES_PER_FRAME=8, BUFFER_SIZE=32,
 MOTION_PROBE_THR=-1 and the 'scatter' BA assembly (``BA_ASSEMBLY`` is read
 when the JAX fused program is traced). The port gets the JAX SLAM's
-weights through ``load_flax_params`` and the JAX SLAM's patch draws
-through its ``patch_sampler`` hook: ``fold_in(PRNGKey(7), counter)`` fed
-to ``select_random_grid`` and ``uniform``, evaluated under ``jax.jit`` as
-the JAX runtime evaluates them (XLA turns the grid's division by
-``scale_f2i`` into a multiplication, which moves the upper-left context
-gather by one token for about half the patches). With seg or depth heads
+weights through ``load_flax_params`` (``vonet_state`` for DPVO) and the
+JAX SLAM's patch draws through its ``patch_sampler`` hook:
+``fold_in(PRNGKey(7), counter)`` fed to ``select_random_grid`` (CDV) or
+to the integer draws of ``select_random`` / ``select_gradient_bias``
+(DPVO: the M centres, or the 3M candidates GRADIENT_BIAS picks from) and
+to ``uniform``, evaluated under ``jax.jit`` as the JAX runtime evaluates
+them (XLA turns the grid's division by ``scale_f2i`` into a
+multiplication, which moves the upper-left context gather by one token
+for about half the patches). With seg or depth heads
 the port gets the JAX SLAM's head weights through the ``models.convert``
 head functions, and under SCORE the JAX SLAM's Gumbel uniforms through
 its ``score_noise`` hook, drawn under ``jax.jit`` the same way.
@@ -23,7 +27,7 @@ from cdvslam_tpu.models.patchifier import select_random_grid as jax_select_rando
 from cdvslam_tpu.slam import SLAM as JaxSLAM
 from cdvslam_tpu_torch.config import get_cfg
 from cdvslam_tpu_torch.models.convert import (
-    depth_head_state, dpt_head_state, load_flax_params, seg_head_state,
+    depth_head_state, dpt_head_state, load_flax_params, seg_head_state, vonet_state,
 )
 from cdvslam_tpu_torch.slam import SLAM
 
@@ -51,14 +55,24 @@ def _cfg(make, keyframe_thresh, motion_probe_thr, overrides=None):
     return cfg
 
 
-def jax_patch_sampler():
-    """The JAX SLAM's patch draws, for the port's ``patch_sampler`` hook."""
+def jax_patch_sampler(network="cdv", strategy="RANDOM_GRID", M=M):
+    """The JAX SLAM's patch draws of M patches per frame, for the port's
+    ``patch_sampler`` hook: the RANDOM_GRID centres (CDV), or (DPVO) the
+    integer candidates of RANDOM (M) or GRADIENT_BIAS (3M), and the
+    pre-init depths."""
     hi, wi = -(-H // 14), -(-W // 14)
+    K = 3 * M if strategy == "GRADIENT_BIAS" else M
 
     @jax.jit
     def draw(counter):
         key = jax.random.fold_in(jax.random.PRNGKey(7), counter)
-        coords = jax_select_random_grid(key, 1, M, hi, wi, 3, 4.0 / 14.0, True)[0]
+        if network == "dpv":
+            kx, ky = jax.random.split(key)
+            x = jax.random.randint(kx, (1, K), 1, W // 4 - 1)
+            y = jax.random.randint(ky, (1, K), 1, H // 4 - 1)
+            coords = jax.numpy.stack([x[0], y[0]], -1).astype(jax.numpy.float32)
+        else:
+            coords = jax_select_random_grid(key, 1, M, hi, wi, 3, 4.0 / 14.0, True)[0]
         depth = jax.random.uniform(jax.random.fold_in(key, 1), (M, 1, 1))
         return coords, depth.reshape(M)
 
@@ -81,12 +95,15 @@ def jax_score_noise():
 
 
 def port_slam(params, keyframe_thresh=None, motion_probe_thr=-1.0, dtype=None,
-              overrides=None, heads=None):
+              overrides=None, heads=None, network="cdv"):
     """The port's SLAM on the CPU with the flax ``params``, the JAX draws,
     and ``heads``: the JAX SLAM whose seg and depth head weights it takes."""
-    ts = SLAM(_cfg(get_cfg, keyframe_thresh, motion_probe_thr, overrides), "cdv",
-              ht=H, wd=W, device="cpu", state_dict=load_flax_params(params),
-              patch_sampler=jax_patch_sampler(), dtype=dtype, score_noise=jax_score_noise())
+    cfg = _cfg(get_cfg, keyframe_thresh, motion_probe_thr, overrides)
+    state = load_flax_params(params) if network == "cdv" else vonet_state(params)
+    ts = SLAM(cfg, network, ht=H, wd=W, device="cpu", state_dict=state,
+              patch_sampler=jax_patch_sampler(network, cfg.CENTROID_SEL_STRAT,
+                                              cfg.PATCHES_PER_FRAME), dtype=dtype,
+              score_noise=jax_score_noise())
     if ts.seg_head is not None:
         ts.seg_head.load_state_dict(seg_head_state(_np(heads.seg_params)))
     if ts.depth_head is not None:
@@ -156,7 +173,8 @@ def drive_port(slam, n=FRAMES):
 
 def run_pair(monkeypatch, keyframe_thresh=None, alloc_slot_first=True,
              motion_probe_thr=-1.0, probes=None, d_head_scale=D_HEAD_SCALE,
-             overrides=None, nframes=FRAMES, weights_after_insert=False, edit_jax=None):
+             overrides=None, nframes=FRAMES, weights_after_insert=False, edit_jax=None,
+             network="cdv"):
     """Run both SLAMs over ``nframes`` random frames and terminate both.
 
     ``alloc_slot_first``: the JAX fused steady-state step builds the
@@ -172,11 +190,12 @@ def run_pair(monkeypatch, keyframe_thresh=None, alloc_slot_first=True,
     ``insert_then_update`` (which also allocates the slot first).
     ``edit_jax``: called with the JAX SLAM before either side runs (to edit
     its head weights, which the port then takes).
+    ``network``: "cdv" or "dpv", on both sides.
     Returns (jax_slam, port_slam, (jax poses, tstamps), (port poses, tstamps));
     ``jax_slam.params`` holds the weights both sides ran.
     """
     monkeypatch.setenv("BA_ASSEMBLY", "scatter")
-    js = JaxSLAM(_cfg(jax_get_cfg, keyframe_thresh, motion_probe_thr, overrides), "cdv",
+    js = JaxSLAM(_cfg(jax_get_cfg, keyframe_thresh, motion_probe_thr, overrides), network,
                  ht=H, wd=W)
     params = jax.tree_util.tree_map(np.asarray, js.params)
     head = params["params"]["update_op"]["heads"]["d"]
@@ -195,7 +214,8 @@ def run_pair(monkeypatch, keyframe_thresh=None, alloc_slot_first=True,
             return fused(*args, **kwargs)
         monkeypatch.setattr(js, "_fused_frame_update", fused_alloc_first)
 
-    ts = port_slam(params, keyframe_thresh, motion_probe_thr, overrides=overrides, heads=js)
+    ts = port_slam(params, keyframe_thresh, motion_probe_thr, overrides=overrides, heads=js,
+                   network=network)
     if probes is not None:
         for side, slam in (("jax", js), ("port", ts)):
             probe = slam.motion_probe
@@ -211,7 +231,8 @@ def run_pair(monkeypatch, keyframe_thresh=None, alloc_slot_first=True,
 
 
 def check_against_float64(monkeypatch, keyframe_thresh, d_head_scale=1.0, overrides=None,
-                          nframes=FRAMES, weights_after_insert=False, edit_jax=None):
+                          nframes=FRAMES, weights_after_insert=False, edit_jax=None,
+                          network="cdv"):
     """The JAX and port float32 runs (full-scale delta head unless
     ``d_head_scale`` says otherwise), held to a float64 run of the port
     (networks and geometry) on the same frames.
@@ -231,9 +252,10 @@ def check_against_float64(monkeypatch, keyframe_thresh, d_head_scale=1.0, overri
     js, ts, (jp, jt), (tp, tt) = run_pair(monkeypatch, keyframe_thresh=keyframe_thresh,
                                           d_head_scale=d_head_scale, overrides=overrides,
                                           nframes=nframes, edit_jax=edit_jax,
-                                          weights_after_insert=weights_after_insert)
+                                          weights_after_insert=weights_after_insert,
+                                          network=network)
     ws = port_slam(js.params, keyframe_thresh, dtype=torch.float64, overrides=overrides,
-                   heads=js)
+                   heads=js, network=network)
     wp, wt = drive_port(ws, nframes)
     assert wp.dtype == np.float64 and wp.shape == (nframes, 7)
     for key in ("keyframe_removals", "updates", "loop_edges", "global_ba"):
