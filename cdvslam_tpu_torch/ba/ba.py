@@ -16,6 +16,12 @@ Shapes:
   mask       (E,) valid-edge mask, or None
   t0         first optimized pose (host int); poses < t0 are fixed
   N          size of the optimized pose window (ix = ii - t0)
+
+The training rollout's numerics (``TRAINING_PARAMS``: more damping, a
+wider residual gate, the depth clamp to [1e-3, 10]), its bounds gate
+(``bounds``) and ``structure_only`` (depths only) are options; the
+inference path is unchanged by them. The whole solve is differentiable:
+the training rollout backpropagates through it.
 """
 from __future__ import annotations
 
@@ -36,9 +42,12 @@ class BAParams(NamedTuple):
     res_thresh: float = 128.0    # residual magnitude gate (pixels)
     z_min: float = 0.2           # min depth for a valid residual
     bounds_margin: float = 64.0  # projection must lie in [-m, 2c+m]
+    depth_clamp_mode: str = "inference"  # 'inference' | 'training'
 
 
 INFERENCE_PARAMS = BAParams()
+# the training rollout's numerics
+TRAINING_PARAMS = BAParams(ep=10.0, res_thresh=250.0, depth_clamp_mode="training")
 
 
 def _edge_terms(poses, patches, intrinsics, target, ii, jj, kk, z_min):
@@ -83,11 +92,27 @@ def _edge_terms(poses, patches, intrinsics, target, ii, jj, kk, z_min):
     return r, Ji, Jj, Jz, (x1, y1, Z)
 
 
+def _validity(r, x1, y1, Z, cx, cy, params: BAParams, bounds):
+    """The edges whose residual enters the solve. Inference: residual below
+    res_thresh, Z above z_min, projection inside the image plus the margin.
+    Training (``bounds`` = (x0, y0, x1, y1)): Z, residual, and the box."""
+    rn = torch.sqrt(torch.sum(r * r, dim=-1))
+    if bounds is None:
+        m = params.bounds_margin
+        return ((rn < params.res_thresh) & (Z > params.z_min)
+                & (x1 > -m) & (y1 > -m) & (x1 < 2 * cx + m) & (y1 < 2 * cy + m))
+    return ((Z > params.z_min) & (rn < params.res_thresh)
+            & (x1 > bounds[0]) & (y1 > bounds[1]) & (x1 < bounds[2]) & (y1 < bounds[3]))
+
+
 def ba_solve(poses, patches, intrinsics, target, weight, ii, jj, kk, mask, t0,
              *, N: int, K: int, iterations: int = 2,
-             params: BAParams = INFERENCE_PARAMS):
+             params: BAParams = INFERENCE_PARAMS, structure_only: bool = False,
+             bounds=None):
     """Damped Gauss-Newton; returns (poses, patches) with the window updated
-    (new tensors; the inputs are not modified)."""
+    (new tensors; the inputs are not modified). ``structure_only``: solve
+    the depths alone (dZ = Q u), poses fixed. ``bounds``: the training
+    gate's box (x0, y0, x1, y1) in place of the inference margin."""
     cx, cy = intrinsics[2], intrinsics[3]
     dtype = poses.dtype
     dev = poses.device
@@ -125,10 +150,7 @@ def ba_solve(poses, patches, intrinsics, target, weight, ii, jj, kk, mask, t0,
     for _ in range(iterations):
         r, Ji, Jj, Jz, (x1, y1, Z) = _edge_terms(
             poses, patches, intrinsics, target, ii, jj, kid, params.z_min)
-        rn = torch.sqrt(torch.sum(r * r, dim=-1))
-        m = params.bounds_margin
-        inb = ((rn < params.res_thresh) & (Z > params.z_min)
-               & (x1 > -m) & (y1 > -m) & (x1 < 2 * cx + m) & (y1 < 2 * cy + m))
+        inb = _validity(r, x1, y1, Z, cx, cy, params, bounds)
         ok = (inb & mask)[:, None]
         w = weight * ok.to(dtype)
         r = torch.where(ok, r, torch.zeros_like(r))
@@ -150,27 +172,33 @@ def ba_solve(poses, patches, intrinsics, target, weight, ii, jj, kk, mask, t0,
         v = plan_v.sum(torch.cat([vi_vec, vj_vec], 0)).reshape(6 * N)
 
         Q = 1.0 / (C + params.lmbda)
-        Ef = Emat.permute(0, 2, 1).reshape(6 * N, K)
-        EQ = Ef * Q[None, :]
-        S = B - EQ @ Ef.T
-        y = v - EQ @ u
-        S = S + torch.diag(params.lm * torch.diagonal(S) + params.ep)
-        L, info = torch.linalg.cholesky_ex(S)
-        dX_flat = torch.cholesky_solve(y[:, None], L)[:, 0]
-        # zeros when the factorization fails
-        failed = (info != 0) | torch.isnan(dX_flat).any()
-        dX_flat = torch.where(failed, torch.zeros_like(dX_flat), dX_flat)
-        dZ = Q * (u - Ef.T @ dX_flat)
-        dX = dX_flat.reshape(N, 6)
+        if structure_only:
+            dZ = Q * u
+        else:
+            Ef = Emat.permute(0, 2, 1).reshape(6 * N, K)
+            EQ = Ef * Q[None, :]
+            S = B - EQ @ Ef.T
+            y = v - EQ @ u
+            S = S + torch.diag(params.lm * torch.diagonal(S) + params.ep)
+            L, info = torch.linalg.cholesky_ex(S)
+            dX_flat = torch.cholesky_solve(y[:, None], L)[:, 0]
+            # zeros when the factorization fails
+            failed = (info != 0) | torch.isnan(dX_flat).any()
+            dX_flat = torch.where(failed, torch.zeros_like(dX_flat), dX_flat)
+            dZ = Q * (u - Ef.T @ dX_flat)
+            dX = dX_flat.reshape(N, 6)
 
-        poses = poses.clone()
-        poses[win] = se3_retr(poses[win], dX[: win.shape[0]].to(dtype))
+            poses = poses.clone()
+            poses[win] = se3_retr(poses[win], dX[: win.shape[0]].to(dtype))
 
         d_old = patches[:, 2, 0, 0]
         d_new = d_old + dZ.to(dtype)
-        # reset exploded depths, floor at 1e-4 (the inference solver's clamps)
-        d_new = torch.where(d_new > 20.0, torch.ones_like(d_new), d_new)
-        d_new = torch.where(touched, d_new.clamp(min=1e-4), d_old)
+        if params.depth_clamp_mode == "training":
+            d_new = torch.where(touched, d_new.clamp(1e-3, 10.0), d_old)
+        else:
+            # reset exploded depths, floor at 1e-4 (the inference solver's clamps)
+            d_new = torch.where(d_new > 20.0, torch.ones_like(d_new), d_new)
+            d_new = torch.where(touched, d_new.clamp(min=1e-4), d_old)
         patches = patches.clone()
         patches[:, 2] = d_new[:, None, None]
     return poses, patches

@@ -200,7 +200,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], int k0, int L, floa
 
 __global__ void __launch_bounds__(THREADS)
 flash_qkv_kernel(const __grid_constant__ CUtensorMap qkv, __nv_bfloat16* __restrict__ out,
-                 int L, int H, float scale_log2) {
+                 float* __restrict__ lse, int L, int H, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;   // swizzled tiles need 1024-byte alignment
@@ -360,6 +360,17 @@ flash_qkv_kernel(const __grid_constant__ CUtensorMap qkv, __nv_bfloat16* __restr
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
   }
+  // training: the natural log of each row's softmax denominator, from the
+  // log2-domain max and the f32 row sum (one thread of the quad writes)
+  if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < L)
+        lse[(static_cast<size_t>(b) * H + head) * L + row] =
+            (m[r] + log2f(l[r])) * 0.6931471805599453f;
+    }
+  }
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -384,13 +395,378 @@ EncodeTiled encoder() {
   return fn;
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// Training: the float32 forward and the backward (f32 and bf16 inputs).
+//
+// Replace the library Pallas kernels the JAX trainer differentiates through
+// (jax.experimental.pallas.ops.tpu.flash_attention): the forward
+// _flash_attention_impl, which also saves the softmax statistics, and the
+// two backward kernels _flash_attention_bwd_dkv and _flash_attention_bwd_dq.
+//
+// What bounds them on the H100: operations. Forward 4 L^2 d h, backward
+// 10 L^2 d h (S recomputed, dP, dV, dK, dQ) per batch element. The float32
+// forward runs on the FP32 pipes (FMA, not TF32: it matches float32 to
+// rounding), so its bound is the non-tensor FP32 peak; the backward uses
+// FP32 FMA for both types (bf16 inputs are widened in shared memory), so
+// the same peak bounds it. The design is the simple tiled one: 64-row
+// query and key tiles in shared memory (rows padded to 65 floats, so that
+// the column reads of a half-warp hit 16 banks), 256 threads each holding
+// a 4 x 4 register block of the 64 x 64 score tile, strided by 16 in both
+// directions, and row reductions over the 16 lanes of a half-warp.
+//  - forward: one CTA per (query tile, head, batch); online softmax in the
+//    log2 domain; writes O and, when asked, the per-row log-sum-exp
+//    LSE = m + log(l). Keys at or past L are masked (the library pads to
+//    its block size with segment ids that do the same).
+//  - backward dQ: one CTA per (query tile, head, batch), a loop over key
+//    tiles; its prologue computes D = rowsum(dO * O) for its rows and
+//    stores it for the dK/dV kernel, which the stream runs after it.
+//  - backward dK/dV: one CTA per (key tile, head, batch), a loop over
+//    query tiles.
+// Both recompute P = exp(q k^T * scale - LSE) and write their slots of the
+// packed dqkv (B, L, 3, H, 64) directly. No atomics: every output element
+// is summed by one thread in a fixed order, so two calls on the same
+// inputs are bitwise equal.
+// ---------------------------------------------------------------------------
 
-// qkv: (B, L, 3, H, 64) contiguous bf16, 16-byte aligned; out: (B, L, H, 64)
-// bf16. Returns cudaGetLastError() after the launch, or the error that kept
-// it from launching.
-extern "C" int flash_attn_qkv_forward(const void* qkv, void* out, int B, int L, int H,
-                                      float scale, void* stream) {
+constexpr int FT = 64;          // rows per tile
+constexpr int LD = FT + 1;      // padded shared-memory row, in floats
+constexpr int FTHREADS = 256;   // thread (ty, tx) = (tid / 16, tid % 16)
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// rows row0..row0+63 of a (L, 64)-row view with `stride` elements between
+// rows into s (64 x LD floats); rows at or past L read zero
+template <typename T>
+__device__ __forceinline__ void load_tile(float* s, const T* __restrict__ src, size_t stride,
+                                          int row0, int L) {
+  for (int i = threadIdx.x; i < FT * HD; i += FTHREADS) {
+    const int r = i >> 6, d = i & 63, row = row0 + r;
+    s[r * LD + d] = row < L ? to_f(src[static_cast<size_t>(row) * stride + d]) : 0.f;
+  }
+}
+
+// sum over the 16 lanes of a half-warp
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__global__ void __launch_bounds__(FTHREADS)
+flash_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
+                 float* __restrict__ lse, int L, int H, float scale) {
+  extern __shared__ float fsm[];
+  float* sQ = fsm;
+  float* sK = sQ + FT * LD;
+  float* sV = sK + FT * LD;
+  float* sP = sV + FT * LD;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = blockIdx.x * FT, h = blockIdx.y, b = blockIdx.z;
+  const size_t rs = static_cast<size_t>(3) * H * HD;
+  const float* base = qkv + static_cast<size_t>(b) * L * rs;
+  const float sl2 = scale * LOG2E;
+  load_tile(sQ, base + h * HD, rs, q0, L);
+
+  float o[4][4], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -CUDART_INF_F;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
+  }
+  for (int k0 = 0; k0 < L; k0 += FT) {
+    __syncthreads();   // the last tile's K, V and P are read
+    load_tile(sK, base + (H + h) * HD, rs, k0, L);
+    load_tile(sV, base + (2 * H + h) * HD, rs, k0, L);
+    __syncthreads();
+    float s[4][4] = {};
+#pragma unroll 8
+    for (int d = 0; d < HD; ++d) {
+      float a[4], c[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty + 16 * i) * LD + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c[j] = sK[(tx + 16 * j) * LD + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (k0 + tx + 16 * j >= L)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[i][j] = -CUDART_INF_F;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+      const float mn = fmaxf(m[i], half_warp_max(mx) * sl2);
+      const float alpha = exp2f(m[i] - mn);
+      m[i] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = exp2f(fmaf(s[i][j], sl2, -mn));
+        sum += p;
+        sP[(ty + 16 * i) * LD + tx + 16 * j] = p;
+        o[i][j] *= alpha;
+      }
+      l[i] = fmaf(l[i], alpha, sum);   // this thread's share of the row sum
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int c = 0; c < FT; ++c) {
+      float p[4], v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = sP[(ty + 16 * i) * LD + c];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = sV[c * LD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[i][j] = fmaf(p[i], v[j], o[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float li = half_warp_sum(l[i]);
+    const int row = q0 + ty + 16 * i;
+    if (row >= L) continue;
+    float* dst = out + (static_cast<size_t>(b) * L + row) * H * HD + h * HD;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dst[tx + 16 * j] = o[i][j] / li;
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<size_t>(b) * H + h) * L + row] = (m[i] + log2f(li)) * LN2;
+  }
+}
+
+// dQ for one (query tile, head, batch), and D = rowsum(dO * O) for its rows
+template <typename T>
+__global__ void __launch_bounds__(FTHREADS)
+flash_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ out,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    float* __restrict__ Dbuf, T* __restrict__ dqkv, int L, int H, float scale) {
+  extern __shared__ float fsm[];
+  float* sQ = fsm;
+  float* sdO = sQ + FT * LD;
+  float* sK = sdO + FT * LD;
+  float* sV = sK + FT * LD;
+  float* sS = sV + FT * LD;
+  float* sL = sS + FT * LD;
+  float* sD = sL + FT;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = blockIdx.x * FT, h = blockIdx.y, b = blockIdx.z;
+  const size_t rs = static_cast<size_t>(3) * H * HD, os = static_cast<size_t>(H) * HD;
+  const T* base = qkv + static_cast<size_t>(b) * L * rs;
+  const size_t stat = (static_cast<size_t>(b) * H + h) * L;
+  load_tile(sQ, base + h * HD, rs, q0, L);
+  load_tile(sdO, dout + static_cast<size_t>(b) * L * os + h * HD, os, q0, L);
+  load_tile(sK, out + static_cast<size_t>(b) * L * os + h * HD, os, q0, L);   // O, for D
+  __syncthreads();
+  {
+    // four threads per row, 16 products each
+    const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
+    float acc = 0.f;
+#pragma unroll
+    for (int d = 16 * part; d < 16 * part + 16; ++d) acc = fmaf(sdO[r * LD + d], sK[r * LD + d], acc);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (part == 0) {
+      const int row = q0 + r;
+      sD[r] = acc;
+      sL[r] = row < L ? lse[stat + row] : CUDART_INF_F;   // padded rows: P = 0
+      if (row < L) Dbuf[stat + row] = acc;
+    }
+  }
+  float dq[4][4] = {};
+  for (int k0 = 0; k0 < L; k0 += FT) {
+    __syncthreads();   // O (first pass) or the last tile's K, V and dS are read
+    load_tile(sK, base + (H + h) * HD, rs, k0, L);
+    load_tile(sV, base + (2 * H + h) * HD, rs, k0, L);
+    __syncthreads();
+    float s[4][4] = {}, dp[4][4] = {};
+#pragma unroll 4
+    for (int d = 0; d < HD; ++d) {
+      float a[4], g[4], kv[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = sQ[(ty + 16 * i) * LD + d];
+        g[i] = sdO[(ty + 16 * i) * LD + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kv[j] = sK[(tx + 16 * j) * LD + d];
+        vv[j] = sV[(tx + 16 * j) * LD + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(g[i], vv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tx + 16 * j;
+        const float p = key < L ? expf(fmaf(s[i][j], scale, -sL[r])) : 0.f;
+        sS[r * LD + tx + 16 * j] = p * (dp[i][j] - sD[r]);
+      }
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int c = 0; c < FT; ++c) {
+      float ds[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[i] = sS[(ty + 16 * i) * LD + c];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = sK[c * LD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dq[i][j] = fmaf(ds[i], kv[j], dq[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= L) continue;
+    T* dst = dqkv + (static_cast<size_t>(b) * L + row) * rs + h * HD;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dst[tx + 16 * j] = from_f<T>(dq[i][j] * scale);
+  }
+}
+
+// dK and dV for one (key tile, head, batch); reads D from the dQ kernel
+template <typename T>
+__global__ void __launch_bounds__(FTHREADS)
+flash_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ Dbuf,
+                     T* __restrict__ dqkv, int L, int H, float scale) {
+  extern __shared__ float fsm[];
+  float* sK = fsm;
+  float* sV = sK + FT * LD;
+  float* sQ = sV + FT * LD;
+  float* sdO = sQ + FT * LD;
+  float* sP = sdO + FT * LD;    // P^T: key rows, query columns
+  float* sdS = sP + FT * LD;    // dS^T
+  float* sL = sdS + FT * LD;
+  float* sD = sL + FT;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int k0 = blockIdx.x * FT, h = blockIdx.y, b = blockIdx.z;
+  const size_t rs = static_cast<size_t>(3) * H * HD, os = static_cast<size_t>(H) * HD;
+  const T* base = qkv + static_cast<size_t>(b) * L * rs;
+  const size_t stat = (static_cast<size_t>(b) * H + h) * L;
+  load_tile(sK, base + (H + h) * HD, rs, k0, L);
+  load_tile(sV, base + (2 * H + h) * HD, rs, k0, L);
+  float dk[4][4] = {}, dv[4][4] = {};
+  for (int q0 = 0; q0 < L; q0 += FT) {
+    __syncthreads();   // the last query tile's Q, dO, P and dS are read
+    load_tile(sQ, base + h * HD, rs, q0, L);
+    load_tile(sdO, dout + static_cast<size_t>(b) * L * os + h * HD, os, q0, L);
+    if (threadIdx.x < FT) {
+      const int row = q0 + threadIdx.x;
+      sL[threadIdx.x] = row < L ? lse[stat + row] : CUDART_INF_F;   // padded rows: P = 0
+      sD[threadIdx.x] = row < L ? Dbuf[stat + row] : 0.f;
+    }
+    __syncthreads();
+    // S^T and dP^T: rows are this CTA's keys ty + 16 i, columns the queries tx + 16 j
+    float st[4][4] = {}, dpt[4][4] = {};
+#pragma unroll 4
+    for (int d = 0; d < HD; ++d) {
+      float kv[4], vv[4], qv[4], gv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        kv[i] = sK[(ty + 16 * i) * LD + d];
+        vv[i] = sV[(ty + 16 * i) * LD + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        qv[j] = sQ[(tx + 16 * j) * LD + d];
+        gv[j] = sdO[(tx + 16 * j) * LD + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
+          dpt[i][j] = fmaf(vv[i], gv[j], dpt[i][j]);
+        }
+    }
+    // keys at or past L have zero rows and are never written: no mask needed
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = tx + 16 * j;
+        const float p = expf(fmaf(st[i][j], scale, -sL[r]));
+        sP[(ty + 16 * i) * LD + r] = p;
+        sdS[(ty + 16 * i) * LD + r] = p * (dpt[i][j] - sD[r]);
+      }
+    __syncthreads();
+#pragma unroll 4
+    for (int r = 0; r < FT; ++r) {
+      float p[4], ds[4], g[4], q[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[i] = sP[(ty + 16 * i) * LD + r];
+        ds[i] = sdS[(ty + 16 * i) * LD + r];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        g[j] = sdO[r * LD + tx + 16 * j];
+        q[j] = sQ[r * LD + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          dv[i][j] = fmaf(p[i], g[j], dv[i][j]);
+          dk[i][j] = fmaf(ds[i], q[j], dk[i][j]);
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + ty + 16 * i;
+    if (row >= L) continue;
+    T* dst = dqkv + (static_cast<size_t>(b) * L + row) * rs;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      dst[(H + h) * HD + tx + 16 * j] = from_f<T>(dk[i][j] * scale);
+      dst[(2 * H + h) * HD + tx + 16 * j] = from_f<T>(dv[i][j]);
+    }
+  }
+}
+
+constexpr int F32_SMEM = 4 * FT * LD * 4;
+constexpr int DQ_SMEM = (5 * FT * LD + 2 * FT) * 4;
+constexpr int DKV_SMEM = (6 * FT * LD + 2 * FT) * 4;
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+int launch_bf16(const void* qkv, void* out, float* lse, int B, int L, int H, float scale,
+                void* stream) {
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   EncodeTiled encode = encoder();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
@@ -413,6 +789,89 @@ extern "C" int flash_attn_qkv_forward(const void* qkv, void* out, int B, int L, 
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((L + BQ - 1) / BQ, H, B);
   flash_qkv_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      map, static_cast<__nv_bfloat16*>(out), L, H, scale * 1.4426950408889634f);
+      map, static_cast<__nv_bfloat16*>(out), lse, L, H, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_dq(const void* qkv, const void* out, const void* dout, const float* lse,
+                  float* D, void* dqkv, int B, int L, int H, float scale, void* stream) {
+  auto kernel = flash_bwd_dq_kernel<T>;
+  cudaError_t err = allow_smem(kernel, DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((L + FT - 1) / FT, H, B);
+  kernel<<<grid, FTHREADS, DQ_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(out), static_cast<const T*>(dout), lse, D,
+      static_cast<T*>(dqkv), L, H, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_dkv(const void* qkv, const void* dout, const float* lse, const float* D,
+                   void* dqkv, int B, int L, int H, float scale, void* stream) {
+  auto kernel = flash_bwd_dkv_kernel<T>;
+  cudaError_t err = allow_smem(kernel, DKV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((L + FT - 1) / FT, H, B);
+  kernel<<<grid, FTHREADS, DKV_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(dout), lse, D, static_cast<T*>(dqkv), L,
+      H, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Every entry point returns cudaGetLastError() after its launch, or the
+// error that kept it from launching. Layouts: qkv (B, L, 3, H, 64) and
+// dqkv the same; out and dout (B, L, H, 64); lse and D (B, H, L) float32.
+// All contiguous; the bf16 forward also needs qkv 16-byte aligned.
+
+// the serving call: bf16, no statistics
+extern "C" int flash_attn_qkv_forward(const void* qkv, void* out, int B, int L, int H,
+                                      float scale, void* stream) {
+  return launch_bf16(qkv, out, nullptr, B, L, H, scale, stream);
+}
+
+// bf16 with the per-row log-sum-exp, for training
+extern "C" int flash_attn_qkv_forward_lse(const void* qkv, void* out, void* lse, int B, int L,
+                                          int H, float scale, void* stream) {
+  return launch_bf16(qkv, out, static_cast<float*>(lse), B, L, H, scale, stream);
+}
+
+// float32; lse may be null
+extern "C" int flash_attn_qkv_forward_f32(const void* qkv, void* out, void* lse, int B, int L,
+                                          int H, float scale, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_f32_kernel, F32_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((L + FT - 1) / FT, H, B);
+  flash_f32_kernel<<<grid, FTHREADS, F32_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(qkv), static_cast<float*>(out), static_cast<float*>(lse), L, H,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+// dQ into dqkv's q slots and D = rowsum(dO * O) into D; dtype 0: float32,
+// 1: bf16 (qkv, out, dout and dqkv)
+extern "C" int flash_attn_qkv_backward_dq(const void* qkv, const void* out, const void* dout,
+                                          const void* lse, void* D, void* dqkv, int B, int L,
+                                          int H, float scale, int dtype, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
+  const float* l = static_cast<const float*>(lse);
+  float* d = static_cast<float*>(D);
+  return dtype == 0 ? launch_bwd_dq<float>(qkv, out, dout, l, d, dqkv, B, L, H, scale, stream)
+                    : launch_bwd_dq<__nv_bfloat16>(qkv, out, dout, l, d, dqkv, B, L, H, scale,
+                                                   stream);
+}
+
+// dK and dV into dqkv's k and v slots; D from flash_attn_qkv_backward_dq
+extern "C" int flash_attn_qkv_backward_dkv(const void* qkv, const void* dout, const void* lse,
+                                           const void* D, void* dqkv, int B, int L, int H,
+                                           float scale, int dtype, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(D);
+  return dtype == 0 ? launch_bwd_dkv<float>(qkv, dout, l, d, dqkv, B, L, H, scale, stream)
+                    : launch_bwd_dkv<__nv_bfloat16>(qkv, dout, l, d, dqkv, B, L, H, scale,
+                                                    stream);
 }

@@ -88,6 +88,11 @@ def se3_retr(data: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     return se3_mul(se3_exp(xi), data)
 
 
+def se3_scale(data: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Scale the translation part by s (shape data.shape[:-1])."""
+    return torch.cat([data[..., :3] * s[..., None], data[..., 3:7]], dim=-1)
+
+
 class SE3:
     """Wrapper with the reference operator API over a ``(..., 7)`` tensor."""
 

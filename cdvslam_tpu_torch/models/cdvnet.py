@@ -6,8 +6,9 @@ context features are DINOv2 ViT-S/14 tokens of the last tapped block
 linear-attention variant with learnable-Fourier rotary encodings.
 
 The module tree follows the reference's state dict: ``patchify.dino.*``,
-``patchify.xfeat.*``, ``update.*`` and ``posenc.Wr``. The score head
-(``compute_score``) is not built: the JAX runtime does not build it either. ``net.update(...)``
+``patchify.xfeat.*``, ``update.*`` and ``posenc.Wr``. The score head (``compute_score``) and
+the DINO adapter (``dino_adapt``) are not ported: neither the JAX runtime
+nor ``train_cdvo.py`` builds them, and asking for one raises. ``net.update(...)``
 and ``net.posenc(...)`` call those submodules, as the JAX package's
 ``CDVNet.update`` and ``CDVNet.posenc`` methods do.
 """
@@ -38,11 +39,20 @@ class CDVNet(nn.Module):
     DIMF = DIMF
     RES = 4
 
-    def __init__(self):
+    def __init__(self, compute_score: bool = False, dino_adapt: bool = False):
         super().__init__()
+        if compute_score or dino_adapt:
+            raise NotImplementedError(
+                "CDVNet(compute_score=True) and CDVNet(dino_adapt=True) are not ported: "
+                "neither the SLAM runtime nor train_cdvo.py's rollout builds them")
         self.patchify = Patchify()
         self.update = UpdateCDV(self.P)
         self.posenc = LearnableFourierPositionalEncoding(2, DIMI // 8)
+
+    def forward(self, method: str, *args, **kwargs):
+        """``self.<method>(*args, **kwargs)``: lets ``torch.func.functional_call``
+        run any method on substituted weights (the bf16 rollout)."""
+        return getattr(self, method)(*args, **kwargs)
 
     def features_f(self, images):
         """Matching features scaled by 1/4: images (N, H, W, 3) in [0, 1] ->

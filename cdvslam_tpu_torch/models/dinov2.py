@@ -4,7 +4,10 @@ Patch 14, dim 384, 12 blocks, 6 heads, MLP ratio 4, LayerScale, LayerNorm
 eps 1e-6, cls token, and the bicubic pos-embed resize with the +0.1
 trick, applied through host-built sampling matrices (bit-matching
 ``F.interpolate(mode="bicubic")`` with an explicit scale factor). The
-attention of every block goes through the flash-attention kernel.
+attention of every block goes through the flash-attention kernels: the
+forward kernel alone when no gradient is taken, and the autograd Function
+(forward with the softmax statistics saved, two backward kernels) when
+one is.
 Module names follow the reference's state dict (``blocks.0.attn.qkv``).
 """
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.flash_attn import flash_attention_qkv
+from ..ops.flash_attn import flash_attention_qkv, flash_attention_qkv_grad
 from .blocks import wide
 
 
@@ -51,8 +54,11 @@ class Attention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x):
-        # the kernel reads q, k, v from the packed projection and writes (B, L, C)
-        return self.proj(flash_attention_qkv(self.qkv(x), self.num_heads))
+        # the kernels read q, k, v from the packed projection and write (B, L, C)
+        qkv = self.qkv(x)
+        if torch.is_grad_enabled() and qkv.requires_grad:
+            return self.proj(flash_attention_qkv_grad(qkv, self.num_heads))
+        return self.proj(flash_attention_qkv(qkv, self.num_heads))
 
 
 class Mlp(nn.Module):

@@ -34,6 +34,11 @@ class VONet(nn.Module):
         self.patchify = Patchify(self.DIMF, self.DIM)
         self.update = UpdateDPV(self.P)
 
+    def forward(self, method: str, *args, **kwargs):
+        """``self.<method>(*args, **kwargs)``: lets ``torch.func.functional_call``
+        run any method on substituted weights (the bf16 rollout)."""
+        return getattr(self, method)(*args, **kwargs)
+
     @staticmethod
     def preprocess(img):
         """uint8-valued (..., H, W, 3) float image -> DPVO's input range,

@@ -5,6 +5,7 @@ public XFeat state dict (``block1.0.layer.0.weight``, ``skip1.1.weight``).
 """
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -25,6 +26,15 @@ class BasicLayer(nn.Module):
             nn.ReLU())
 
     def forward(self, x):
+        conv, bn, _ = self.layer
+        if bn.running_mean.requires_grad:
+            # the JAX trainer keeps the running statistics among its flax
+            # params, differentiates and trains them: flax's formula, which
+            # (unlike the batch_norm op) carries their gradient
+            y = conv(x)
+            y = (y - bn.running_mean[:, None, None]) * torch.rsqrt(
+                bn.running_var[:, None, None] + bn.eps)
+            return torch.relu(y)
         return self.layer(x)
 
 

@@ -31,7 +31,13 @@ _I = ctypes.c_int
 SIGNATURES = {
     "corr": {"corr_pyramid_forward": [_P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
-    "flash_attn": {"flash_attn_qkv_forward": [_P, _P, _I, _I, _I, ctypes.c_float, _P]},
+    "flash_attn": {"flash_attn_qkv_forward": [_P, _P, _I, _I, _I, ctypes.c_float, _P],
+                   "flash_attn_qkv_forward_lse": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
+                   "flash_attn_qkv_forward_f32": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
+                   "flash_attn_qkv_backward_dq": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                                  ctypes.c_float, _I, _P],
+                   "flash_attn_qkv_backward_dkv": [_P, _P, _P, _P, _P, _I, _I, _I,
+                                                   ctypes.c_float, _I, _P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -139,10 +139,6 @@ class SLAM:
         self.device = resolve_device(device)
         if self.device.type == "cuda" and dtype is not None:
             raise NotImplementedError("dtype is only ported for the CPU")
-        if network == "cdv" and self.device.type == "cuda" and not self.cfg.MIXED_PRECISION:
-            raise NotImplementedError(
-                "on the card the DINO attention kernel runs in bf16: "
-                "MIXED_PRECISION=False is only ported for the CPU")
         self.network = network
         self.ht, self.wd = ht, wd
         self.is_initialized = False

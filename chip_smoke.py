@@ -17,12 +17,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
   2  DINO flash-attention kernel (K2) against its plain version through the
      packed-qkv interface, bf16, 6 heads of 64, L in {1, 64, 65, 301, 1891}:
      max abs error <= 2e-2, relative Frobenius <= 1e-2
+  2-train  K2 for training: the float32 forward (output and log-sum-exp)
+     within 1e-5 of max |plain|, the bf16 forward with the log-sum-exp by
+     phase 2's rule and its log-sum-exp within 1e-3, the backward kernels
+     within 1e-4 (float32) and 1e-2 (bf16) of max |plain| (the plain
+     backward from the plain output and log-sum-exp) and bitwise
+     repeatable, at L in {1, 63, 65, 1000, 1891} (B 1) and the sparse
+     training shape (B 15, L 1611); then times at the training shape against
+     the plain versions, SDPA's forward and backward, and the bounds, each
+     backward kernel's and both together's ("2-train-times")
   3  bundle adjustment run twice at E = 9600, K = 2688: bitwise equal
   4  the main path: SLAM(get_cfg(), "cdv", 480, 752) with seeded random
      weights and 8 seeded random frames cycled, 60 warm-up frames, one
      100-frame timed window, terminate(); poses finite, corr launched
      once per update and flash attention 12 times per frame; the corr
      inputs of the last warm-up frame's update are captured
+  4-f32  40 frames of the main path with MIXED_PRECISION=False: FPS, poses
+     finite, 12 float32 K2 launches per frame and no bf16 one
   5  K1 on those captured inputs: parity (bf16 rule above) and times
   6  the proximity loop-closure path: get_cfg() merged with
      config/default_cdvslam.yaml, CLASSIC_LOOP_CLOSURE=False,
@@ -57,13 +68,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
      frames: loop edges and global BAs fire, poses finite); K1 is checked
      and timed on the last warm-up update's inputs ("8-update") and on the
      first update with loop edges ("8-loop-update")
+  9  training (``cdvslam_tpu_torch.train.cli``) on a synthetic TartanAir
+     tree at 480 x 640 with seeded random weights: 3 sparse and 2 dense
+     CDVNet steps in float32, a bf16 sparse step and a DPVO step; ms per
+     step, peak memory, K2 launches against 12 blocks x 2 forward (the
+     checkpointed extractor runs again in the backward) and 12 of each
+     backward kernel per step, a nonzero gradient in every parameter group
+     and every DINO block's qkv; one small step, twice on the card, held
+     leaf by leaf to float32 and float64 CPU runs of the port
 
 Then a kernels line (a list of per-kernel records: launches on the main
 path, max error, kernel / plain / library times and the roofline bound;
 K1's record adds the phase-5 times as ms_main_path and friends, the
 phase-6 times as ms_loop_update and friends, and phase 8's as ms_c128,
 ms_dpvo_update, ms_dpv_loop_update and friends; both records add
-launches_loop_path, launches_cdvo_pp_path and launches_dpvo_path),
+launches_loop_path, launches_cdvo_pp_path and launches_dpvo_path; the
+float32 forward and the two backward kernels of K2 have records of their
+own, timed at the training shape, with phase 9's launches),
 the nvidia-smi line, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -74,9 +95,11 @@ wall time), launches per frame, the port's two kernels and the top
 kernels by device time; then the same for the loop-closure path of
 phase 6 after 100 warm-up frames, for the CDVO++ path of phase 7 after
 60 (with the heads' device time and launches per frame) and for the DPVO
-path of phase 8 after 60. The full tables go to
-DIR/profile_{main,loop,cdvo_pp,dpvo}_path.txt. It prints neither the
-kernels line nor the ok line.
+path of phase 8 after 60; then a float32 sparse training step (phase 9's
+setting, after two untraced steps). The full tables go to
+DIR/profile_{main,loop,cdvo_pp,dpvo}_path.txt and
+DIR/profile_train_step.txt. It prints neither the kernels line nor the ok
+line.
 It never imports JAX or the JAX package. Needs one CUDA card.
 """
 import argparse
@@ -313,6 +336,163 @@ def phase2():
     }
 
 
+TRAIN_SHAPE = (15, 6, 1611, 64)   # sparse training: 15 frames at 480 x 640 (490 x 644 padded)
+
+
+def _attn_flops(B, L, h=6, d=64):
+    """Multiply-adds counted twice: S = Q K^T and P V, 2 L^2 d each."""
+    return 4 * L * L * d * h * B
+
+
+def _bwd_native(which, qkv, out, lse, dout, D, dqkv):
+    """One launch of a backward kernel through the C entry point (``dq``
+    also writes D, which ``dkv`` reads), for timing each kernel alone."""
+    import torch
+    from cdvslam_tpu_torch.ops import native
+    lib = native.load("flash_attn")
+    B, L, C3 = qkv.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    dt = 0 if qkv.dtype == torch.float32 else 1
+    if which == "dq":
+        err = lib.flash_attn_qkv_backward_dq(qkv.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                                             lse.data_ptr(), D.data_ptr(), dqkv.data_ptr(),
+                                             B, L, 6, 0.125, dt, stream)
+    else:
+        err = lib.flash_attn_qkv_backward_dkv(qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                                              D.data_ptr(), dqkv.data_ptr(), B, L, 6, 0.125,
+                                              dt, stream)
+    native.check(err, which)
+
+
+def phase2_train():
+    """K2 for training: the float32 forward (output and log-sum-exp) and
+    the backward kernels in float32 and bf16 against their plain versions
+    at the SLAM shape (B 1, L 1891), the training shape (B 15, L 1611) and
+    odd L; two backward calls bitwise equal; then times at the training
+    shape against the plain versions, SDPA's forward and its backward, and
+    the roofline bounds. Tolerances: f32 forward output and log-sum-exp
+    1e-5 and f32 backward 1e-4 of max |plain|; the bf16 forward with the
+    log-sum-exp as phase 2 holds the serving call (2e-2 max abs, 1e-2
+    relative Frobenius, against the plain version in bf16) and its
+    log-sum-exp 1e-3 of max |plain|; bf16 backward 1e-2 of max |plain|.
+    The plain backward takes the plain output (float32 on the same values)
+    and log-sum-exp, not the kernels'; the kernels round dqkv to bf16."""
+    import torch
+    import torch.nn.functional as F
+    from cdvslam_tpu_torch.ops import flash_attn as fa
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out = {"phase": "2-train", "checks": {}}
+    worst = {"f32": 0.0, "bf16_lse": 0.0, "bwd_f32": 0.0, "bwd_bf16": 0.0}  # max abs errors
+    ok = True
+
+    def rel(a, b, key=None):
+        err = (a.float() - b.float()).abs().max().item()
+        if key is not None:
+            worst[key] = max(worst[key], err)
+        return err / b.float().abs().max().item()
+
+    for B, L in ((1, 1), (1, 63), (1, 65), (1, 1000), (1, 1891), TRAIN_SHAPE[::2]):
+        qkv = torch.randn((B, L, 1152), generator=gen, device="cuda")
+        dout = torch.randn((B, L, 384), generator=gen, device="cuda")
+        rec, good = {}, True
+        for dtype, name, tol in ((torch.float32, "f32", 1e-4), (torch.bfloat16, "bf16", 1e-2)):
+            x, g = qkv.to(dtype), dout.to(dtype)
+            o, lse = fa._forward(x, 6, with_lse=True)
+            p_out, p_lse = fa.attention_qkv_plain(x.float(), 6), fa.attention_lse_plain(x, 6)
+            r_lse = rel(lse, p_lse, "bf16_lse" if name == "bf16" else None)
+            if name == "f32":
+                r_out = rel(o, p_out, "f32")
+                rec.update(fwd_f32_rel=r_out, lse_f32_rel=r_lse)
+                good = good and r_out <= 1e-5 and r_lse <= 1e-5
+            else:
+                want = fa.attention_qkv_plain(x, 6).float()
+                max_abs = (o.float() - want).abs().max().item()
+                rel_fro = ((o.float() - want).norm() / want.norm()).item()
+                rec.update(fwd_bf16_max_abs=max_abs, fwd_bf16_rel_fro=rel_fro,
+                           lse_bf16_rel=r_lse)
+                good = good and max_abs <= 2e-2 and rel_fro <= 1e-2 and r_lse <= 1e-3
+            d1 = fa.flash_attention_qkv_backward(x, o, lse, g, 6)
+            d2 = fa.flash_attention_qkv_backward(x, o, lse, g, 6)
+            r = rel(d1, fa.attention_qkv_backward_plain(x, p_out, p_lse, g, 6), f"bwd_{name}")
+            same = torch.equal(d1, d2)
+            rec[f"bwd_{name}_rel"], rec[f"bwd_{name}_bitwise"] = r, same
+            good = good and r <= tol and same
+        torch.cuda.synchronize()
+        rec["ok"] = good
+        out["checks"][f"B{B}_L{L}"] = rec
+        ok = ok and good
+    out["ok"] = ok
+    emit(out)
+    if not ok:
+        raise SystemExit("phase 2-train: the training kernels disagree with plain")
+
+    # times at the training shape
+    B, h, L, d = TRAIN_SHAPE
+    flops = _attn_flops(B, L)
+    times = {}
+    for dtype, name, peak in ((torch.float32, "f32", F32_FLOPS), (torch.bfloat16, "bf16", BF16_FLOPS)):
+        es = 4 if dtype == torch.float32 else 2
+        qkv = torch.randn((B, L, 1152), generator=gen, device="cuda").to(dtype)
+        dout = torch.randn((B, L, 384), generator=gen, device="cuda").to(dtype)
+        o, lse = fa._forward(qkv, 6, with_lse=True)
+        D = torch.empty((B, h, L), device="cuda")
+        dqkv = torch.empty_like(qkv)
+        q, k, v = (t.detach().requires_grad_(True) for t in
+                   qkv.reshape(B, L, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0))
+        sd_out = F.scaled_dot_product_attention(q, k, v)
+        sd_dout = dout.reshape(B, L, h, d).transpose(1, 2)
+        fns = {"fwd": lambda: fa._forward(qkv, 6, with_lse=True),
+               "dq": lambda: _bwd_native("dq", qkv, o, lse, dout, D, dqkv),
+               "dkv": lambda: _bwd_native("dkv", qkv, o, lse, dout, D, dqkv),
+               "sdpa_fwd": lambda: F.scaled_dot_product_attention(q, k, v),
+               "sdpa_bwd": lambda: torch.autograd.grad(sd_out, (q, k, v), sd_dout,
+                                                       retain_graph=True)}
+        rounds = {key: [] for key in fns}
+        for i in range(5):
+            for key in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+                rounds[key].append(cuda_time(fns[key], 3, warmup=1))
+        med = {key: statistics.median(v) for key, v in rounds.items()}
+        med["plain_fwd"] = cuda_time(lambda: fa.attention_qkv_plain(qkv, 6), 3, warmup=1)
+        med["plain_bwd"] = cuda_time(
+            lambda: fa.attention_qkv_backward_plain(qkv, o, lse, dout, 6), 3, warmup=1)
+        io = B * L * 384 * es                       # one (B, L, C) tensor
+        stat = B * h * L * 4                        # one (B, h, L) float32 tensor
+        # bytes each function must move (inputs read once, outputs written
+        # once) and operations: forward S and P V; dQ: S, dP and dQ (6 L^2 d
+        # h); dK/dV: S, dP, dK and dV (8 L^2 d h) -- the whole backward
+        # needs 10 L^2 d h when one kernel does both
+        work = {"fwd": (flops, 4 * io + stat),
+                "dq": (1.5 * flops, 3 * io + 2 * io + 2 * stat + io),
+                "dkv": (2.0 * flops, 3 * io + io + 2 * stat + 2 * io)}
+        for key, (ops, nbytes) in work.items():
+            ops_ms, bytes_ms = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            times[f"{key}_{name}"] = {
+                "ms": med[key], "rounds_ms": rounds[key],
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "share_of_bound": max(ops_ms, bytes_ms) / med[key],
+                "plain_ms": med["plain_fwd"] if key == "fwd" else med["plain_bwd"],
+                "library_ms": med["sdpa_fwd"] if key == "fwd" else med["sdpa_bwd"]}
+        # the backward as one function: 10 L^2 d h; the split design
+        # recomputes S and dP in both kernels (4 L^2 d h more)
+        ops_ms = 2.5 * flops / peak * 1e3
+        bytes_ms = (8 * io + stat) / HBM_BYTES_PER_S * 1e3
+        bwd_ms = med["dq"] + med["dkv"]
+        times[f"bwd_{name}"] = {
+            "ms": bwd_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "share_of_bound": max(ops_ms, bytes_ms) / bwd_ms,
+            "plain_ms": med["plain_bwd"], "library_ms": med["sdpa_bwd"]}
+        times[f"sdpa_fwd_bwd_{name}_ms"] = med["sdpa_fwd"] + med["sdpa_bwd"]
+        del qkv, dout, o, lse, D, dqkv, q, k, v, sd_out
+        torch.cuda.empty_cache()
+    emit({"phase": "2-train-times", "shape": {"B": B, "heads": h, "L": L, "d": d},
+          "per": "one call; ms medians of 5 alternating rounds of 3 calls; plain_ms of the "
+                 "backward is the formula (both kernels' work); library_ms: SDPA forward, or "
+                 "SDPA backward (dq, dk and dv together)", **times})
+    return {"max_abs_err": worst, "times": times}
+
+
 def _ba_window(gen, NFw=28, M=96):
     import torch
     from cdvslam_tpu_torch.geom import transform
@@ -420,6 +600,49 @@ def phase4(smi):
     if not ok:
         raise SystemExit(f"phase 4: main path checks failed: {checks}")
     return counts, captured[0]
+
+
+def phase4_f32(smi, nframes=40):
+    """The main path in float32 (MIXED_PRECISION=False): the DINO blocks on
+    the float32 K2 forward. nframes frames, FPS over the frames after the
+    8-frame init, poses finite, 12 f32 K2 launches per frame and no bf16."""
+    import numpy as np
+    import torch
+    from cdvslam_tpu_torch.config import get_cfg
+    from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
+    from cdvslam_tpu_torch.slam import SLAM
+    cfg = get_cfg()
+    cfg.MOTION_PROBE_THR = -1.0
+    cfg.MIXED_PRECISION = False
+    frames, intr = _frames()
+    slam = SLAM(cfg, network="cdv", ht=480, wd=752, seed=0)
+    corr_cuda.LAUNCHES.reset()
+    flash_attn.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for f in range(nframes):
+        if f == 8:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        slam(f, frames[f % 8], intr)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    poses, _ = slam.terminate()
+    torch.cuda.synchronize()
+    counts = {"corr": corr_cuda.LAUNCHES.count, "dino_flash_attn_f32": flash_attn.LAUNCHES_F32.count,
+              "dino_flash_attn_bf16": flash_attn.LAUNCHES.count}
+    checks = {"poses_finite": bool(np.isfinite(poses).all()),
+              "poses_shape": list(poses.shape) == [nframes, 7],
+              "attn_f32_12_per_frame": counts["dino_flash_attn_f32"] == 12 * nframes,
+              "no_bf16_attn": counts["dino_flash_attn_bf16"] == 0,
+              "corr_1_per_update": counts["corr"] == slam.stats["updates"],
+              "float32_network": slam.fdtype == torch.float32}
+    ok = all(checks.values())
+    emit({"phase": "4-f32", "frames": nframes, "fps": (nframes - 8) / run_s,
+          "updates": slam.stats["updates"], "launches": counts, "checks": checks,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi, "ok": ok})
+    if not ok:
+        raise SystemExit(f"phase 4-f32: float32 main path checks failed: {checks}")
+    return counts
 
 
 def corr_on_captured(phase, args):
@@ -948,6 +1171,188 @@ def _dpv_slam_subrun(frames, intr):
                 "lc_loop_corr_inputs_captured": "corr" in captured}}
 
 
+def _synthetic_tartan(root, nframes=70, ht=480, wd=640):
+    """A TartanAir-format scene tree (one scene of nframes seeded random
+    frames, depths 4-5 m, slow forward motion) and its scene-info pickle."""
+    import cv2
+    import numpy as np
+    from cdvslam_tpu_torch.data.tartan import build_scene_info
+    scene = root / "office" / "office" / "Easy" / "P001"
+    (scene / "image_left").mkdir(parents=True)
+    (scene / "depth_left").mkdir(parents=True)
+    rng = np.random.RandomState(9)
+    poses = []
+    for i in range(nframes):
+        cv2.imwrite(str(scene / "image_left" / f"{i:06d}_left.png"),
+                    (rng.rand(ht, wd, 3) * 255).astype(np.uint8))
+        np.save(str(scene / "depth_left" / f"{i:06d}_left_depth.npy"),
+                4.0 + rng.rand(ht, wd).astype(np.float32))
+        poses.append([0.02 * i, 0.0, 0.01 * i, 0.0, 0.0, 0.0, 1.0])
+    np.savetxt(str(scene / "pose_left.txt"), np.asarray(poses), delimiter=" ")
+    build_scene_info(str(root), str(root / "TartanAir.pickle"))
+    return root / "TartanAir.pickle"
+
+
+GROUPS = {"cdv": ("patchify.dino", "patchify.xfeat", "update", "posenc"),
+          "dpv": ("patchify.fnet", "patchify.inet", "update")}
+
+
+def _grad_groups(state, network):
+    """After a step's update, Adam's first moment is (1 - b1) times the
+    step's gradient: the leaves of each parameter group with a nonzero
+    gradient, and each DINO block's qkv projection (the K2 backward's
+    input gradient flows through it)."""
+    seen = {g: [0, 0] for g in GROUPS[network]}
+    qkv = {}
+    for (name, _), mu in zip(state.params.items(), state.opt_state.mu):
+        nz = bool((mu != 0).any())
+        for g in seen:
+            if name.startswith(g):
+                seen[g][0] += nz
+                seen[g][1] += 1
+        if name.endswith("attn.qkv.weight"):
+            qkv[name] = nz
+    return seen, qkv
+
+
+def phase9(smi):
+    """Training at full width on a synthetic TartanAir tree at 480 x 640
+    through the training entry point (``train.cli.main``): CDVNet with
+    seeded random weights, 3 sparse steps (F 15, M 80, 18 iterations) and 2
+    dense steps (F 4, M 1530, 4 iterations) in float32, one sparse step in
+    bf16, and one DPVO step (M 96). Each run is driven with the kernel
+    counts set to 0 and read after it. Checks: finite losses and no NaN
+    skip; K2 launches equal to 12 blocks x 2 (the checkpointed extractor
+    runs forward again in the backward pass) forward and 12 of each
+    backward kernel per step, none under DPVO; a nonzero gradient in every
+    parameter group and in every DINO block's qkv; then one small training
+    step (F 4, M 4, 48 x 64) on the card held to the CPU port's float32 and
+    float64 runs (``_train_step_card_vs_cpu``)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from cdvslam_tpu_torch.ops import flash_attn as fa
+    from cdvslam_tpu_torch.train import cli
+    tmp = Path(tempfile.mkdtemp(prefix="cdv_train_"))
+    t0 = time.perf_counter()
+    pickle_path = _synthetic_tartan(tmp / "TartanAir")
+    tree_s = time.perf_counter() - t0
+    common = ["--datapath", str(tmp / "TartanAir"), "--scene_info", str(pickle_path),
+              "--outdir", str(tmp / "checkpoints"), "--logdir", str(tmp / "runs"),
+              "--eval_every", "1000000"]
+    runs = {"f32": ("cdv", ["--schedule", "sparse,sparse,sparse,dense,dense"]),
+            "bf16": ("cdv", ["--schedule", "sparse", "--compute_dtype", "bfloat16"]),
+            "dpvo": ("dpv", ["--schedule", "sparse"])}
+    out, checks = {"phase": 9, "tree_s": tree_s, "runs": {}}, {}
+    for run, (network, extra) in runs.items():
+        fa.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        grads = {}
+
+        def on_step(record, state, network=network):
+            grads[record["step"]] = _grad_groups(state, network)
+
+        recs = cli.main([network, *common, *extra], on_step=on_step)
+        torch.cuda.synchronize()
+        n = len(recs)
+        counts = {"fwd_bf16": fa.LAUNCHES.count, "fwd_f32": fa.LAUNCHES_F32.count,
+                  "bwd_dq": fa.LAUNCHES_DQ.count, "bwd_dkv": fa.LAUNCHES_DKV.count}
+        fwd = "fwd_bf16" if run == "bf16" else "fwd_f32"
+        expect = ({fwd: 24 * n, "bwd_dq": 12 * n, "bwd_dkv": 12 * n} if network == "cdv"
+                  else {"bwd_dq": 0, "bwd_dkv": 0})
+        groups = {step: g for step, (g, _) in grads.items()}
+        qkv_ok = all(all(q.values()) and len(q) == (12 if network == "cdv" else 0)
+                     for _, q in grads.values())
+        checks[f"{run}_losses_finite"] = all(np.isfinite(r["loss"]) and r["nan_skip"] == 0.0
+                                             for r in recs)
+        checks[f"{run}_k2_launches"] = all(counts[k] == v for k, v in expect.items()) and (
+            network == "cdv" or sum(counts.values()) == 0)
+        checks[f"{run}_every_group_has_a_gradient"] = all(
+            hit > 0 for g in groups.values() for hit, _ in g.values())
+        checks[f"{run}_every_dino_qkv_has_a_gradient"] = qkv_ok
+        out["runs"][run] = {
+            "network": network, "steps": recs, "launches": counts, "expected_launches": expect,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "grad_groups_nonzero_of_leaves": groups}
+    out["small_card_vs_cpu"] = _train_step_card_vs_cpu()
+    checks["small_card_vs_cpu"] = out["small_card_vs_cpu"]["ok"]
+    ok = all(checks.values())
+    out.update({"checks": checks, "card": smi, "ok": ok,
+                "cuts": {"weights": "random (seed 0)",
+                         "data": "a synthetic 70-frame TartanAir-format scene at 480 x 640",
+                         "steps": "3 sparse + 2 dense float32, 1 sparse bf16, 1 DPVO"}})
+    emit(out)
+    if not ok:
+        raise SystemExit(f"phase 9: training checks failed: {checks}")
+    return out
+
+
+def _train_step_card_vs_cpu():
+    """One train-step loss and gradient of a seeded CDVNet on a seeded
+    48 x 64 clip (F 4, M 4, MIN_FRAME 3, 3 iterations), twice on the card
+    (TF32 off) and on the CPU in float32 and float64, from the same weights
+    and draws: the card's loss within 1e-4 of the float64 one, and each
+    gradient leaf above 1e-6 of the largest held to its own triangle
+    (``leaf_triangle``)."""
+    import numpy as np
+    import torch
+    from cdvslam_tpu_torch.models import CDVNet
+    from cdvslam_tpu_torch.train import RolloutConfig, draw, make_loss_fn, trainable
+    cfg = RolloutConfig(F=4, M=4, STEPS=3, MIN_FRAME=3, is_cdv=True)
+    rng = np.random.RandomState(0)
+    batch = {"images": torch.from_numpy((rng.rand(1, 4, 48, 64, 3) * 255).astype(np.float32)),
+             "poses": torch.tensor([0, 0, 0, 0, 0, 0, 1.0]).repeat(1, 4, 1),
+             "disps": torch.ones(1, 4, 12, 16),
+             "intrinsics": torch.tensor([[60.0, 60.0, 32.0, 24.0]])}
+    draws = [draw(cfg, 48, 64, torch.Generator().manual_seed(4))]
+    res = {}
+    for name, dev, dtype in (("cpu64", "cpu", torch.float64), ("cpu32", "cpu", torch.float32),
+                             ("card", "cuda", torch.float32), ("card2", "cuda", torch.float32)):
+        torch.manual_seed(0)
+        model = CDVNet().to(dev, dtype).eval()
+        leaves = trainable(model)
+        loss, _ = make_loss_fn(model, cfg)({k: v.to(dev, dtype) for k, v in batch.items()},
+                                           draws=draws)
+        loss.backward()
+        res[name] = (loss.item(), {k: t.grad.double().cpu() for k, t in leaves.items()})
+    (l64, g64), (l32, _), (lg, _), (lg2, _) = (res[n] for n in ("cpu64", "cpu32", "card", "card2"))
+    tri = leaf_triangle(g64, res["cpu32"][1], res["card"][1], res["card2"][1])
+    ok = bool(np.isfinite(lg) and np.isfinite(lg2) and abs(lg - l64) <= 1e-4 * abs(l64)
+              and abs(lg2 - l64) <= 1e-4 * abs(l64) and tri["ok"])
+    return {"loss_cpu64": l64, "loss_cpu32": l32, "loss_card": [lg, lg2], "leaves": tri, "ok": ok}
+
+
+def leaf_triangle(g64, g32, card, card2, floor=1e-3):
+    """Each gradient leaf whose float64 max |g| is above 1e-6 of the largest
+    leaf's, held to its own triangle: both card runs' distance from the
+    float64 run (max abs over the leaf, over the leaf's max |g|) at most 3x
+    that leaf's float32 noise plus ``floor``, where the noise is the larger
+    of the CPU float32 run's distance from float64 and the two card runs'
+    distance from each other (the card's scatter-adds sum in an order that
+    changes from run to run). The damped BA solves amplify float32 rounding
+    to 1e-2 of some leaves; a kernel fault shows as a leaf far outside its
+    own noise. Returns the worst leaf overall and among DINO's leaves."""
+    top = max(g.abs().max().item() for g in g64.values())
+    rows, bad = {}, []
+    for k, g in g64.items():
+        scale = g.abs().max().item()
+        if scale < 1e-6 * top:
+            continue
+        d32, d1, d2, spread = ((a - b).abs().max().item() / scale for a, b in (
+            (g32[k], g), (card[k], g), (card2[k], g), (card[k], card2[k])))
+        limit = 3 * max(d32, spread) + floor
+        rows[k] = {"cpu32": d32, "card": max(d1, d2), "spread": spread, "limit": limit,
+                   "use": max(d1, d2) / limit}
+        if max(d1, d2) > limit:
+            bad.append(k)
+    worst = max(rows, key=lambda k: rows[k]["use"])
+    dino = max((k for k in rows if ".dino." in k), key=lambda k: rows[k]["use"])
+    return {"leaves": len(rows), "floor": floor, "failed": {k: rows[k] for k in bad},
+            "worst": {worst: rows[worst]}, "worst_dino": {dino: rows[dino]},
+            "max_card_rel": max(r["card"] for r in rows.values()),
+            "max_cpu32_rel": max(r["cpu32"] for r in rows.values()), "ok": not bad}
+
+
 def _tree_kernels(event):
     """Device time (us) and launches of the kernels under a profiler event."""
     us = sum(k.duration for k in event.kernels)
@@ -1024,6 +1429,49 @@ def _profile_window(slam, frames, intr, start, win, table_path):
                                           for e in ops}}
 
 
+def _profile_train(out_dir):
+    """Three float32 sparse training steps through the CLI on phase 9's
+    synthetic tree: the second timed untraced, the third under
+    torch.profiler (device busy time and idle share against the untraced
+    step, launches, K2's kernels, the top kernels and host ops)."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cdvslam_tpu_torch.train import cli
+    tmp = Path(tempfile.mkdtemp(prefix="cdv_train_prof_"))
+    pickle_path = _synthetic_tartan(tmp / "TartanAir")
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    rec = {}
+
+    def on_step(record, state):
+        rec[record["step"]] = record["ms"]
+        if record["step"] == 2:
+            prof.start()
+        elif record["step"] == 3:
+            torch.cuda.synchronize()
+            prof.stop()
+
+    cli.main(["cdv", "--datapath", str(tmp / "TartanAir"), "--scene_info", str(pickle_path),
+              "--outdir", str(tmp / "checkpoints"), "--logdir", str(tmp / "runs"),
+              "--schedule", "sparse,sparse,sparse"], on_step=on_step)
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    ops = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA),
+                 key=lambda e: -e.self_cpu_time_total)[:10]
+    (out_dir / "profile_train_step.txt").write_text(
+        events.table(sort_by="self_device_time_total", row_limit=60))
+    emit({"phase": "profile", "path": "train_sparse_f32", "untraced_step_ms": rec[2],
+          "traced_step_ms": rec[3], "device_busy_ms": busy_ms,
+          "device_idle_share": 1.0 - busy_ms / rec[2],
+          "kernel_launches": sum(e.count for e in kernels),
+          "k2_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in kernels
+                    if "flash_" in e.key},
+          "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
+          "top_host_ops_ms": {e.key[:60]: e.self_cpu_time_total / 1e3 for e in ops}})
+
+
 def profile_paths(out_dir):
     """The main path (60 warm-up frames), the loop-closure path (100
     warm-up frames: about 78 keyframes past the first loop detection), the
@@ -1052,6 +1500,7 @@ def profile_paths(out_dir):
               "keyframes": slam.pg.n, "global_ba_in_windows": slam.stats["global_ba"] - g0})
         del slam
         torch.cuda.empty_cache()
+    _profile_train(out_dir)
 
 
 def main():
@@ -1077,8 +1526,10 @@ def main():
         return 0
     corr_rec = phase1()
     attn_rec = phase2()
+    train_rec = phase2_train()
     phase3()
     counts, captured = phase4(smi)
+    f32_counts = phase4_f32(smi)
     main_rec = corr_on_captured(5, captured)
     lc_counts, lc_captured = phase6(smi)
     loop_rec = corr_on_captured("6-corr", lc_captured)
@@ -1087,6 +1538,7 @@ def main():
     dpvo_counts, dpvo_captured, dpv_loop_captured, dpv_loop_counts = phase8(smi)
     dpvo_rec = corr_on_captured("8-update", dpvo_captured)
     dpv_loop_rec = corr_on_captured("8-loop-update", dpv_loop_captured)
+    train = phase9(smi)
 
     ops_ms, bytes_ms = attn_rec["bound"]
     kernels = [
@@ -1135,8 +1587,36 @@ def main():
          "launches_dpvo_path": dpvo_counts["dino_flash_attn"],
          "per": "one call, packed qkv (1, 1891, 1152) bf16 -> (1, 1891, 384); ms and "
                 "library_ms are medians of 5 alternating rounds of 20 calls",
-         "rounds": attn_rec["rounds"]},
+         "rounds": attn_rec["rounds"],
+         "launches_train_bf16_step": train["runs"]["bf16"]["launches"]["fwd_bf16"],
+         "train_shape_bf16_lse": train_rec["times"]["fwd_bf16"],
+         "max_abs_err_lse": train_rec["max_abs_err"]["bf16_lse"]},
     ]
+    t, runs = train_rec["times"], train["runs"]
+    per = ("one call at the sparse training shape, packed qkv (15, 1611, 1152); ms, "
+           "plain_ms and library_ms from phase 2-train; launches: phase 9's float32 run "
+           "(3 sparse + 2 dense steps)")
+    for name, key, src, replaces, err in (
+            ("dino_flash_attn_f32", "fwd", "fwd_f32",
+             "cdvslam_tpu/models/dinov2.py:53 (library _flash_attention_impl, "
+             "jax/experimental/pallas/ops/tpu/flash_attention.py:589)", "f32"),
+            ("dino_flash_attn_bwd_dq", "dq", "bwd_dq",
+             "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 (_flash_attention_bwd_dq, "
+             "reached from cdvslam_tpu/models/dinov2.py:69)", "bwd_f32"),
+            ("dino_flash_attn_bwd_dkv", "dkv", "bwd_dkv",
+             "jax/experimental/pallas/ops/tpu/flash_attention.py:941 (_flash_attention_bwd_dkv, "
+             "reached from cdvslam_tpu/models/dinov2.py:69)", "bwd_f32")):
+        rec = t[f"{key}_f32"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "cdvslam_tpu_torch/csrc/flash_attn.cu",
+            "replaces": replaces, "launches": runs["f32"]["launches"][src],
+            "max_abs_err": train_rec["max_abs_err"][err], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"], "per": per, "rounds_ms": rec["rounds_ms"],
+            **({"launches_f32_slam": f32_counts["dino_flash_attn_f32"]} if key == "fwd" else {
+                "launches_bf16_run": runs["bf16"]["launches"][src],
+                "bf16": t[f"{key}_bf16"], "max_abs_err_bf16": train_rec["max_abs_err"]["bwd_bf16"],
+                "backward_both_kernels": {"f32": t["bwd_f32"], "bf16": t["bwd_bf16"]}})})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,14 @@ runs the same comparisons at the main-path shapes). Tolerances: corr f32
 1e-4 absolute (f32 dots of 24 or 128 products summed in another order); corr
 bf16 5e-3 of max |plain| against the plain version evaluated in f32 on the
 same bf16 values; flash attention bf16 max abs 2e-2 and relative Frobenius
-1e-2 (bf16 probabilities against bf16 softmax then matmul); global BA on
+1e-2 (bf16 probabilities against bf16 softmax then matmul); flash
+attention float32 (FP32 FMA, TF32 off) 1e-5 of max |plain| on the output
+and on the log-sum-exp; the bf16 forward with the log-sum-exp as the
+serving call, its log-sum-exp 1e-3 of max |plain|; the backward kernels
+1e-4 of max |plain| in float32 and 1e-2 in bf16 (the plain backward in
+float32 on the same values, from the plain output and log-sum-exp; the
+kernels round dqkv to bf16), and two backward calls bitwise equal;
+global BA on
 the card against the CPU port on the same float32 inputs 1e-4 on poses and
 1e-3 on inverse depths (cuBLAS and the CPU sum in other orders), and two
 solves on the card bitwise equal; the heads on the card against the CPU
@@ -16,7 +23,13 @@ CPU sum the convolutions in other orders); the DPVO SLAM on the card in
 float32 (TF32 off) against the CPU port on the same seeded weights and
 frames: the same patch centres, one corr launch per update at C = 128, and
 poses within 1e-3 per component (the encoders, the update operator and 16
-BAs summed in other orders).
+BAs summed in other orders); the float32 "cdv" SLAM on the card against
+the CPU port, the same rule (on a halved delta head); one training loss
+and gradient on the card held to a float64 CPU run of the port: loss 1e-4
+relative, each gradient leaf within 3x its own float32 noise plus 1e-3
+(cuDNN, cuBLAS and the card's scatter-adds sum in other orders and the
+damped BA solves amplify it); the segment sums' backward on the card
+exactly (a gather).
 """
 from pathlib import Path
 
@@ -125,12 +138,70 @@ def test_flash_attention_batches_and_heads(card):
     assert ((got - want).norm() / want.norm()).item() <= 1e-2
 
 
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("B,L", [(1, 1), (1, 63), (1, 65), (2, 1000), (1, 1891), (3, 1611)])
+def test_flash_attention_f32_matches_plain(card, monkeypatch, B, L):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device=card).manual_seed(3)
+    qkv = torch.randn((B, L, 3 * 384), generator=g, device=card)
+    before = flash_attn.LAUNCHES_F32.count
+    got, lse = flash_attn._forward(qkv, 6, with_lse=True)
+    assert flash_attn.LAUNCHES_F32.count == before + 1
+    assert got.dtype == torch.float32 and got.shape == (B, L, 384) and lse.shape == (B, 6, L)
+    assert _rel(got, flash_attn.attention_qkv_plain(qkv, 6)) <= 1e-5
+    assert _rel(lse, flash_attn.attention_lse_plain(qkv, 6)) <= 1e-5
+    assert torch.equal(flash_attn.flash_attention_qkv(qkv, 6), got)   # no-LSE launch
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L", [(1, 1), (1, 63), (1, 65), (2, 1000), (1, 1891), (3, 1611)])
+def test_flash_attention_backward_matches_plain(card, monkeypatch, dtype, B, L):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device=card).manual_seed(4)
+    qkv = torch.randn((B, L, 3 * 384), generator=g, device=card).to(dtype)
+    dout = torch.randn((B, L, 384), generator=g, device=card).to(dtype)
+    out, lse = flash_attn._forward(qkv, 6, with_lse=True)
+    # the plain backward from the plain output (float32 on qkv's values) and LSE
+    p_out = flash_attn.attention_qkv_plain(qkv.float(), 6)
+    p_lse = flash_attn.attention_lse_plain(qkv, 6)
+    if dtype == torch.bfloat16:   # the wgmma kernel's output and LSE, as in phase 2
+        want_out = flash_attn.attention_qkv_plain(qkv, 6).float()
+        assert (out.float() - want_out).abs().max().item() <= 2e-2
+        assert ((out.float() - want_out).norm() / want_out.norm()).item() <= 1e-2
+        assert _rel(lse, p_lse) <= 1e-3
+    before = (flash_attn.LAUNCHES_DQ.count, flash_attn.LAUNCHES_DKV.count)
+    got = flash_attn.flash_attention_qkv_backward(qkv, out, lse, dout, 6)
+    again = flash_attn.flash_attention_qkv_backward(qkv, out, lse, dout, 6)
+    assert (flash_attn.LAUNCHES_DQ.count, flash_attn.LAUNCHES_DKV.count) == (
+        before[0] + 2, before[1] + 2)
+    want = flash_attn.attention_qkv_backward_plain(qkv, p_out, p_lse, dout, 6)
+    assert got.dtype == dtype and got.shape == qkv.shape
+    assert torch.equal(got, again)
+    assert _rel(got, want) <= (1e-4 if dtype == torch.float32 else 1e-2)
+
+
+def test_flash_attention_autograd_matches_plain_autograd(card, monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn((2, 301, 3 * 384), generator=g, device=card)
+    w = torch.randn((2, 301, 384), generator=g, device=card)
+    grads = []
+    for fn in (flash_attn.flash_attention_qkv_grad, flash_attn.attention_qkv_plain):
+        qkv = x.clone().requires_grad_(True)
+        (fn(qkv, 6) * w).sum().backward()
+        grads.append(qkv.grad)
+    assert _rel(grads[0], grads[1]) <= 1e-4
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     qkv = torch.randn((1, 10, 3 * 64), device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         flash_attn.flash_attention_qkv(qkv, 2)               # head dim 32
     with pytest.raises(ValueError):
-        flash_attn.flash_attention_qkv(qkv.float(), 1)       # float32
+        flash_attn.flash_attention_qkv(qkv.half(), 1)        # float16
     strided = torch.randn((1, 10, 2 * 3 * 64), device=card, dtype=torch.bfloat16)[..., :192]
     with pytest.raises(ValueError):
         flash_attn.flash_attention_qkv(strided, 1)
@@ -244,3 +315,110 @@ def test_dpvo_slam_on_the_card_matches_the_cpu(card, monkeypatch, strategy):
     assert cl == 0 and gl == gs["updates"] == cs["updates"] > 0
     assert torch.equal(gc, cc)
     assert np.isfinite(gp).all() and np.abs(gp - cp).max() <= 1e-3
+
+
+def test_float32_cdv_slam_on_the_card_matches_the_cpu(card, monkeypatch):
+    """MIXED_PRECISION=False under "cdv" on the card (it was refused before
+    DINO attention had a float32 kernel): 12 random 64 x 96 frames,
+    KEYFRAME_THRESH=0, against the CPU port on the same seeded weights and
+    frames: the same patch centres, 12 float32 K2 launches per frame and no
+    bf16 one, poses within 1e-3 per component. The delta head is halved, as
+    in the CPU parity harness (tests/torch_slam_pair.py): at full scale the
+    random network drives depths into the BA's reset and the two runs drift
+    2.6e-3 apart (measured on the card)."""
+    from cdvslam_tpu_torch.models import CDVNet
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = get_cfg()
+    cfg.update(PATCHES_PER_FRAME=16, BUFFER_SIZE=32, MOTION_PROBE_THR=-1.0, KEYFRAME_THRESH=0.0,
+               MIXED_PRECISION=False)
+    torch.manual_seed(3)
+    state = CDVNet().state_dict()
+    for k in ("update.d.1.weight", "update.d.1.bias"):
+        state[k] = state[k] * 0.5
+    rng = np.random.RandomState(0)
+    frames = [(rng.rand(64, 96, 3) * 255).astype(np.uint8) for _ in range(12)]
+    intr = np.array([80.0, 80.0, 48.0, 32.0], np.float32)
+    runs = {}
+    for dev in ("cpu", card):
+        flash_attn.reset_counts()
+        slam = SLAM(cfg, "cdv", ht=64, wd=96, device=dev, seed=3, state_dict=state)
+        for f, img in enumerate(frames):
+            slam(f, img, intr)
+        poses, _ = slam.terminate()
+        runs[str(dev)] = (poses, slam.pg.patches_[: slam.n * 16, :2].cpu(),
+                          flash_attn.LAUNCHES_F32.count, flash_attn.LAUNCHES.count)
+    (cp, cc, cf, cb), (gp, gc, gf, gb) = runs["cpu"], runs[str(card)]
+    assert cf == cb == gb == 0 and gf == 12 * len(frames)
+    assert torch.equal(gc, cc)
+    assert np.isfinite(gp).all() and np.abs(gp - cp).max() <= 1e-3
+
+
+def test_training_step_on_the_card_matches_the_cpu(card, monkeypatch):
+    """One loss and gradient of the training rollout (F 4, M 4, 48 x 64,
+    MIN_FRAME 3, 3 iterations), twice on the card, TF32 off, from the same
+    seeded weights and draws as two CPU runs of the port, in float32 and
+    float64. The card's loss within 1e-4 of the float64 one. Each leaf
+    above 1e-6 of the largest (the others are analytically zero) is held to
+    its own triangle: both card runs within 3x that leaf's float32 noise
+    plus 1e-3 of its max |gradient| of the float64 run, the noise being the
+    larger of the CPU float32 run's distance from float64 and the two card
+    runs' distance from each other. The damped BA solves amplify float32
+    rounding (to 1.4e-2 to 4.3e-2 of a leaf between the CPU's float32 and
+    float64 runs, by the host's torch), and the card's scatter-adds sum in an order that changes from
+    run to run (two card runs measured 2.6e-3 and 1.2e-2 from the CPU
+    float32 run on one leaf). DINO's attention runs the float32 forward 24
+    times (the checkpointed extractor runs twice) and each backward kernel
+    12 times."""
+    from cdvslam_tpu_torch.models import CDVNet
+    from cdvslam_tpu_torch.train import RolloutConfig, draw, make_loss_fn, trainable
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = RolloutConfig(F=4, M=4, STEPS=3, MIN_FRAME=3, is_cdv=True)
+    rng = np.random.RandomState(0)
+    batch = {"images": torch.from_numpy((rng.rand(1, 4, 48, 64, 3) * 255).astype(np.float32)),
+             "poses": torch.tensor([0, 0, 0, 0, 0, 0, 1.0]).repeat(1, 4, 1),
+             "disps": torch.ones(1, 4, 12, 16),
+             "intrinsics": torch.tensor([[60.0, 60.0, 32.0, 24.0]])}
+    draws = [draw(cfg, 48, 64, torch.Generator().manual_seed(4))]
+    res = {}
+    for name, dev, dtype in (("cpu64", "cpu", torch.float64), ("cpu32", "cpu", torch.float32),
+                             ("card", card, torch.float32), ("card2", card, torch.float32)):
+        flash_attn.reset_counts()
+        torch.manual_seed(0)
+        model = CDVNet().to(dev, dtype).eval()
+        leaves = trainable(model)
+        loss, _ = make_loss_fn(model, cfg)({k: v.to(dev, dtype) for k, v in batch.items()},
+                                           draws=draws)
+        loss.backward()
+        res[name] = (loss.item(), {k: t.grad.double().cpu() for k, t in leaves.items()},
+                     (flash_attn.LAUNCHES_F32.count, flash_attn.LAUNCHES_DQ.count,
+                      flash_attn.LAUNCHES_DKV.count))
+    (l64, g64, _), (_, g32, n32) = res["cpu64"], res["cpu32"]
+    (lg, gg, ng), (lg2, gg2, ng2) = res["card"], res["card2"]
+    assert n32 == (0, 0, 0) and ng == ng2 == (24, 12, 12)
+    for loss in (lg, lg2):
+        assert np.isfinite(loss) and abs(loss - l64) <= 1e-4 * abs(l64)
+    top = max(g.abs().max().item() for g in g64.values())
+    bad = {}
+    for k, g in g64.items():
+        scale = g.abs().max().item()
+        if scale < 1e-6 * top:
+            continue
+        d32, d1, d2, spread = ((a - b).abs().max().item() / scale for a, b in (
+            (g32[k], g), (gg[k], g), (gg2[k], g), (gg[k], gg2[k])))
+        if max(d1, d2) > 3 * max(d32, spread) + 1e-3:
+            bad[k] = (d32, d1, d2, spread)
+    assert not bad, bad
+
+
+def test_segment_sums_backward_on_the_card(card):
+    from cdvslam_tpu_torch.ops.scatter import SegmentPlan
+    ids = torch.tensor([3, 0, 3, 1, 7, -1, 1, 3], device=card)
+    plan = SegmentPlan(ids, 4)
+    vals = torch.randn((8, 2, 3), device=card, requires_grad=True)
+    up = torch.randn((4, 2, 3), device=card)
+    plan.sum(vals).backward(up)
+    want = torch.where(((ids >= 0) & (ids < 4))[:, None, None], up[ids.clamp(0, 3)],
+                       torch.zeros((), device=card))
+    assert torch.equal(vals.grad, want)

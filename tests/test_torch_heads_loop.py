@@ -20,8 +20,13 @@ The depth head is left out here: with it, its scale adjustment after each
 update that runs no global BA carries both float32 runs 5.7e-3 and 6.3e-3
 from a float64 run, beyond the triangle's 5e-3, and the run takes over two
 minutes; the depth head is held with removals in test_torch_heads_slam.py.
+
+The Tier-1 test runs 4 patches per frame (the harness's 8 in the full
+drive, marked slow): the time goes to the port's float64 run over the
+growing edge set, which scales with the patches.
 """
 import numpy as np
+import pytest
 import torch
 
 from cdvslam_tpu_torch.models.datamaps import ADE20K_INDEX_FILT
@@ -31,13 +36,22 @@ torch.set_num_threads(2)
 
 
 def test_loop_closure_with_heads_stores_the_multiplied_weights(monkeypatch):
+    _drive(monkeypatch, 4)
+
+
+@pytest.mark.slow
+def test_loop_closure_with_heads_stores_the_multiplied_weights_full(monkeypatch):
+    _drive(monkeypatch, 8)
+
+
+def _drive(monkeypatch, patches):
     nframes = 44
     heads = {k: v for k, v in HEADS.items() if k != "DEPTH_HEAD"}
     js, ts, ws, gaps = check_against_float64(
         monkeypatch, 0.0, d_head_scale=0.5, nframes=nframes, edit_jax=dynamic_seg,
         weights_after_insert=True,
         overrides=dict(heads, LOOP_CLOSURE=True, BACKEND_THRESH=999.0,
-                       BUFFER_SIZE=nframes + 64))
+                       BUFFER_SIZE=nframes + 64, PATCHES_PER_FRAME=patches))
     assert ts.stats["loop_edges"] > 0 and ts.stats["global_ba"] > 0
     n, M = ts.pg.n, ts.M
     seg = ts.pg.seg_[:n].numpy()
