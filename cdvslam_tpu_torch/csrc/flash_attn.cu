@@ -395,61 +395,109 @@ EncodeTiled encoder() {
   return fn;
 }
 
+
+// the 4-D map {64 head dims, slots, L, B} over a bf16 tensor laid out (B, L,
+// slots, 64): the packed qkv (slots 3 H) or out / dout (slots H); 64-row
+// boxes of one slot, 128-byte swizzle, zero fill past L
+bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int slots, int L, int B) {
+  const cuuint64_t row = static_cast<cuuint64_t>(slots) * HD * 2;  // bytes per token
+  const cuuint64_t dims[4] = {HD, (cuuint64_t)slots, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {HD * 2, row, row * L};
+  const cuuint32_t box[4] = {HD, 1, BK, 1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ---------------------------------------------------------------------------
-// Training: the float32 forward and the backward (f32 and bf16 inputs).
+// Training: the float32 forward and the backward (bf16 and float32).
 //
 // Replace the library Pallas kernels the JAX trainer differentiates through
 // (jax.experimental.pallas.ops.tpu.flash_attention): the forward
 // _flash_attention_impl, which also saves the softmax statistics, and the
 // two backward kernels _flash_attention_bwd_dkv and _flash_attention_bwd_dq.
 //
-// What bounds them on the H100: operations. Forward 4 L^2 d h, backward
-// 10 L^2 d h (S recomputed, dP, dV, dK, dQ) per batch element. The float32
-// forward runs on the FP32 pipes (FMA, not TF32: it matches float32 to
-// rounding), so its bound is the non-tensor FP32 peak; the backward uses
-// FP32 FMA for both types (bf16 inputs are widened in shared memory), so
-// the same peak bounds it. The design is the simple tiled one: 64-row
-// query and key tiles in shared memory (rows padded to 65 floats, so that
-// the column reads of a half-warp hit 16 banks), 256 threads each holding
-// a 4 x 4 register block of the 64 x 64 score tile, strided by 16 in both
-// directions, and row reductions over the 16 lanes of a half-warp.
-//  - forward: one CTA per (query tile, head, batch); online softmax in the
-//    log2 domain; writes O and, when asked, the per-row log-sum-exp
-//    LSE = m + log(l). Keys at or past L are masked (the library pads to
-//    its block size with segment ids that do the same).
-//  - backward dQ: one CTA per (query tile, head, batch), a loop over key
-//    tiles; its prologue computes D = rowsum(dO * O) for its rows and
-//    stores it for the dK/dV kernel, which the stream runs after it.
-//  - backward dK/dV: one CTA per (key tile, head, batch), a loop over
-//    query tiles.
-// Both recompute P = exp(q k^T * scale - LSE) and write their slots of the
-// packed dqkv (B, L, 3, H, 64) directly. No atomics: every output element
-// is summed by one thread in a fixed order, so two calls on the same
-// inputs are bitwise equal.
+// What bounds them on the H100: operations. Forward 4 L^2 d h per batch
+// element; the backward 10 L^2 d h as one function, 14 L^2 d h as split
+// here (dQ: S, dP and dQ; dK/dV: S, dP, dK and dV). One kernel would form S
+// and dP once but would have to sum dQ across the CTAs of the key tiles,
+// with atomics (not repeatable) or ordered semaphores, so the split stays.
+//
+// The float32 forward runs on the FP32 pipes (FMA, not TF32: it matches
+// float32 to rounding), the simple tiled design: 64-row query and key tiles
+// in shared memory (rows padded to 65 floats, so that the column reads of a
+// half-warp hit 16 banks), 256 threads each holding a 4 x 4 register block
+// of the 64 x 64 score tile, strided by 16 in both directions, row
+// reductions over the 16 lanes of a half-warp, the online softmax in the
+// log2 domain; it writes O and, when asked, the per-row log-sum-exp
+// LSE = m + log(l). Keys at or past L are masked (the library pads to its
+// block size with segment ids that do the same).
+//
+// Both backward kernels, in both types: dQ runs one CTA per (query tile,
+// head, batch) and loops over the key tiles; its prologue computes
+// D = rowsum(dO * O) for its rows and stores it for the dK/dV kernel, which
+// the stream runs after it. dK/dV runs one CTA per (key tile, head, batch)
+// and loops over the query tiles. Both recompute P = exp(q k^T * scale -
+// LSE) and write their slots of the packed dqkv (B, L, 3, H, 64) directly.
+// Query rows at or past L get LSE = +inf, so P = 0; keys at or past L are
+// masked in dQ (their zero-filled rows give S = 0, not -inf) and never
+// written in dK/dV. No atomics: every output element is summed by one
+// thread (float32) or one wgmma accumulator (bf16) in a fixed order, so two
+// calls on the same inputs are bitwise equal.
+//
+// bf16: the tensor cores, with the forward's operand patterns. One
+// warpgroup per CTA; its two own tiles and a 3-stage ring of the streamed
+// ones come in by TMA (the forward's map over the packed qkv, and one over
+// dout), 128-byte swizzle, zero fill past L; thread 0 refills a stage as
+// soon as the warpgroup is done with it, two tiles ahead.
+//  - dQ: S = Q K^T and dP = dO V^T, four wgmma.m64n64k16 each with both
+//    operands K-major; P = exp2(S * scale * log2 e - LSE * log2 e) and
+//    dS = P (dP - D) in float32 on the fragment; dS packed to bf16 in
+//    registers is the A operand of dQ += dS K, K read MN-major (the
+//    forward's P V pattern).
+//  - dK/dV: K and V stay resident; S^T = K Q^T and dP^T = V dO^T; P^T
+//    packed to bf16 feeds dV += P^T dO while dS^T = P^T (dP^T - D) is
+//    formed, then dK += dS^T Q (dO and Q MN-major). The per-query LSE and D
+//    of the next tile are loaded under this tile's products (two buffers).
+//  - The next tile's S and dP are issued right behind the dQ (or dK, dV)
+//    products, so the tensor cores have both queued while the warpgroup
+//    waits; no wgmma is in flight across a loop iteration. The elementwise
+//    work of one CTA overlaps the products of the other CTAs on its SM.
+//  P and dS are rounded to bf16 only as wgmma operands, where the TPU kernel
+//  rounds them (p.T.astype(do.dtype), ds.astype(k.dtype)); S, dP and every
+//  accumulator stay float32.
+//
+// float32: FP32 FMA, 256 threads in two halves of 128, each half running one
+// of the tile's 64 x 64 products at a time (dQ: S | dP, then dQ over half
+// of the keys each; dK/dV: S^T then dV | dP^T, dS^T then dK), each thread
+// holding an 8 x 4 register block. Tiles are 64 x 64 floats without
+// padding, their 16-byte chunks swizzled by the row (chunk c of row r at
+// c ^ (r & 7)), so every operand is read as one 16-byte vector per four
+// products, the 8 lanes of a quarter-warp hit 8 different bank groups, and
+// one step of four head dims loads 12 vectors for 128 FMAs (4 x 4 blocks
+// over all 256 threads: 8 for 64, and 1.1x slower on the H100; 8 x 8 blocks
+// over 128-row CTAs, one per SM: no faster). The streamed tiles come in by
+// cp.async (zero fill past L), single-buffered so that two CTAs fit on an
+// SM: one CTA's copy runs under the other's products (double buffering
+// measured no faster). P and dS go through shared memory between the
+// products.
 // ---------------------------------------------------------------------------
 
 constexpr int FT = 64;          // rows per tile
-constexpr int LD = FT + 1;      // padded shared-memory row, in floats
-constexpr int FTHREADS = 256;   // thread (ty, tx) = (tid / 16, tid % 16)
+constexpr int LD = FT + 1;      // padded shared-memory row of the forward, in floats
+constexpr int FTHREADS = 256;   // float32 kernels
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// rows row0..row0+63 of a (L, 64)-row view with `stride` elements between
-// rows into s (64 x LD floats); rows at or past L read zero
-template <typename T>
-__device__ __forceinline__ void load_tile(float* s, const T* __restrict__ src, size_t stride,
+// rows row0..row0+63 of a (L, 64)-row float view with `stride` floats
+// between rows into s (64 x LD floats); rows at or past L read zero
+__device__ __forceinline__ void load_tile(float* s, const float* __restrict__ src, size_t stride,
                                           int row0, int L) {
   for (int i = threadIdx.x; i < FT * HD; i += FTHREADS) {
     const int r = i >> 6, d = i & 63, row = row0 + r;
-    s[r * LD + d] = row < L ? to_f(src[static_cast<size_t>(row) * stride + d]) : 0.f;
+    s[r * LD + d] = row < L ? src[static_cast<size_t>(row) * stride + d] : 0.f;
   }
 }
 
@@ -554,215 +602,651 @@ flash_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
   }
 }
 
+// ---- bf16 backward -----------------------------------------------------------
+
+// shared memory of both bf16 backward kernels, from the 1024-aligned base:
+// the CTA's two own tiles (dQ: Q, dO; dK/dV: K, V), two rings of STAGES
+// streamed tiles (dQ: K, V; dK/dV: Q, dO), one mbarrier per tile, then the
+// per-row statistics (dQ: D of its rows; dK/dV: LSE and D of a query tile,
+// two buffers)
+constexpr uint32_t BW_OFF_RING1 = 2 * TILE_BYTES;
+constexpr uint32_t BW_OFF_RING2 = BW_OFF_RING1 + STAGES * TILE_BYTES;
+constexpr uint32_t BW_OFF_BAR = BW_OFF_RING2 + STAGES * TILE_BYTES;
+constexpr uint32_t BW_OFF_STAT = BW_OFF_BAR + 8 * (2 + 2 * STAGES);
+constexpr uint32_t BW_SMEM = BW_OFF_STAT + 2 * 2 * FT * 4 + 1024;   // + alignment slack
+
+// k16 step kk of a tile whose rows are the M (or N) index and whose 64 head
+// dims are the K index (K-major), and of a tile whose rows are the K index
+// and whose head dims are the N index (MN-major, read with the transpose flag)
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  return desc_b128(tile + 32 * kk, 16, 1024);
+}
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
+  return desc_b128(tile + 2048 * kk, TILE_BYTES, 1024);
+}
+
+// s = A1 B1^T and t = A2 B2^T (64 x 64 each) from four K-major tiles, one
+// commit group
+__device__ __forceinline__ void issue_two_ss(float (&s)[32], float (&t)[32], uint32_t a1,
+                                             uint32_t b1, uint32_t a2, uint32_t b2) {
+  uint64_t da1[HD / 16], db1[HD / 16], da2[HD / 16], db2[HD / 16];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    da1[kk] = desc_kmajor(a1, kk);
+    db1[kk] = desc_kmajor(b1, kk);
+    da2[kk] = desc_kmajor(a2, kk);
+    db2[kk] = desc_kmajor(b2, kk);
+    asm volatile("" : "+l"(da1[kk]), "+l"(db1[kk]), "+l"(da2[kk]), "+l"(db2[kk]));
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = 0.f;
+    t[i] = 0.f;
+  }
+  reg_fence(s);
+  reg_fence(t);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss(s, da1[kk], db1[kk]);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss(t, da2[kk], db2[kk]);
+  wg_commit();
+}
+
+// d += A B, A (64 x 64 bf16) in registers, B an MN-major tile; one commit group
+__device__ __forceinline__ void issue_rs(float (&d)[32], uint32_t (&a)[4][4], uint32_t b) {
+  uint64_t db[BK / 16];
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    db[kk] = desc_mnmajor(b, kk);
+    asm volatile("" : "+l"(db[kk]));
+  }
+  reg_fence(d);
+  reg_fence(a);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs(d, a[kk], db[kk]);
+  wg_commit();
+}
+
+// a 64 x 64 float fragment in the accumulator layout as the bf16 A operand
+// of four k16 steps (the accumulator's columns are the K index)
+__device__ __forceinline__ void pack_a(const float (&x)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    a[j / 2][2 * (j % 2)] = pack_bf16(x[4 * j], x[4 * j + 1]);
+    a[j / 2][2 * (j % 2) + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
+  }
+}
+
 // dQ for one (query tile, head, batch), and D = rowsum(dO * O) for its rows
-template <typename T>
-__global__ void __launch_bounds__(FTHREADS)
-flash_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ out,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    float* __restrict__ Dbuf, T* __restrict__ dqkv, int L, int H, float scale) {
-  extern __shared__ float fsm[];
-  float* sQ = fsm;
-  float* sdO = sQ + FT * LD;
-  float* sK = sdO + FT * LD;
-  float* sV = sK + FT * LD;
-  float* sS = sV + FT * LD;
-  float* sL = sS + FT * LD;
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap qkv, const __grid_constant__ CUtensorMap dom,
+                  const __nv_bfloat16* __restrict__ out, const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ lse, float* __restrict__ Dbuf,
+                  __nv_bfloat16* __restrict__ dqkv, int L, int H, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base, sdO = base + TILE_BYTES;
+  const uint32_t sK = base + BW_OFF_RING1, sV = base + BW_OFF_RING2;
+  const uint32_t barQ = base + BW_OFF_BAR, barO = barQ + 8;
+  const uint32_t barK = barO + 8, barV = barK + 8 * STAGES;
+  float* sD = reinterpret_cast<float*>(smem_raw + (base - raw) + BW_OFF_STAT);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * BQ, head = blockIdx.y, b = blockIdx.z;
+  const int nt = (L + BK - 1) / BK;
+  if (tid == 0) {
+    mbar_init(barQ);
+    mbar_init(barO);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(barK + 8 * s);
+      mbar_init(barV + 8 * s);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    tma_tile(sQ, &qkv, barQ, head, q0, b);
+    tma_tile(sdO, &dom, barO, head, q0, b);
+    for (int t = 0; t < STAGES && t < nt; ++t) {
+      tma_tile(sK + t * TILE_BYTES, &qkv, barK + 8 * t, H + head, t * BK, b);
+      tma_tile(sV + t * TILE_BYTES, &qkv, barV + 8 * t, 2 * H + head, t * BK, b);
+    }
+  }
+  const size_t C = static_cast<size_t>(H) * HD;
+  const size_t stat = (static_cast<size_t>(b) * H + head) * L;
+  {
+    // D = rowsum(dO * O) from device memory while the tiles come in: two
+    // threads per row, 32 products each
+    const int r = tid >> 1, row = q0 + r;
+    float acc = 0.f;
+    if (row < L) {
+      const size_t off = (static_cast<size_t>(b) * L + row) * C + head * HD + 32 * (tid & 1);
+      const uint4* po = reinterpret_cast<const uint4*>(out + off);
+      const uint4* pg = reinterpret_cast<const uint4*>(dout + off);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const uint4 a = po[v], g = pg[v];
+        const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 x = __bfloat1622float2(a2[e]), y = __bfloat1622float2(g2[e]);
+          acc = fmaf(y.x, x.x, acc);
+          acc = fmaf(y.y, x.y, acc);
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if ((tid & 1) == 0) {
+      sD[r] = acc;
+      if (row < L) Dbuf[stat + row] = acc;
+    }
+  }
+  __syncthreads();
+  // this thread's fragment rows r0 and r0 + 8: D and LSE (log2 domain)
+  const int r0 = warp * 16 + lane / 4;
+  float dd[2], ll[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    dd[r] = sD[r0 + 8 * r];
+    ll[r] = row < L ? lse[stat + row] * LOG2E : CUDART_INF_F;   // padded rows: P = 0
+  }
+  const float sl2 = scale * LOG2E;
+
+  float dq[32], s[32], dp[32];
+  uint32_t da[4][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  mbar_wait(barQ, 0);
+  mbar_wait(barO, 0);
+  mbar_wait(barK, 0);
+  mbar_wait(barV, 0);
+  issue_two_ss(s, dp, sQ, sK, sdO, sV);
+  wg_wait<0>();
+  reg_fence(s);
+  reg_fence(dp);
+  for (int t = 0; t < nt; ++t) {
+    const int st = t % STAGES;
+    __syncthreads();   // every warp is done with stage (t - 1) % STAGES: refill it
+    if (tid == 0 && t >= 1 && t - 1 + STAGES < nt) {
+      const int sp = (t - 1) % STAGES, tn = t - 1 + STAGES;
+      tma_tile(sK + sp * TILE_BYTES, &qkv, barK + 8 * sp, H + head, tn * BK, b);
+      tma_tile(sV + sp * TILE_BYTES, &qkv, barV + 8 * sp, 2 * H + head, tn * BK, b);
+    }
+    // dS = P (dP - D) in place of S; s[4 j + e] is row r0 + 8 (e >> 1), key
+    // 8 j + 2 (lane % 4) + (e & 1)
+    const int k0 = t * BK;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      float p = exp2_approx(fmaf(s[i], sl2, -ll[r]));
+      if (k0 + BK > L && k0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1) >= L) p = 0.f;
+      s[i] = p * (dp[i] - dd[r]);
+    }
+    pack_a(s, da);
+    issue_rs(dq, da, sK + st * TILE_BYTES);
+    if (t + 1 < nt) {
+      const int sn = (t + 1) % STAGES;
+      mbar_wait(barK + 8 * sn, ((t + 1) / STAGES) & 1);
+      mbar_wait(barV + 8 * sn, ((t + 1) / STAGES) & 1);
+      issue_two_ss(s, dp, sQ, sK + sn * TILE_BYTES, sdO, sV + sn * TILE_BYTES);
+    }
+    wg_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    reg_fence(dq);
+    reg_fence(da);
+  }
+  const size_t rs = 3 * C;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    if (row >= L) continue;
+    __nv_bfloat16* dst =
+        dqkv + (static_cast<size_t>(b) * L + row) * rs + head * HD + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+          __floats2bfloat162_rn(dq[4 * j + 2 * r] * scale, dq[4 * j + 2 * r + 1] * scale);
+  }
+}
+
+// dK and dV for one (key tile, head, batch); reads D from the dQ kernel
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap qkv, const __grid_constant__ CUtensorMap dom,
+                   const float* __restrict__ lse, const float* __restrict__ Dbuf,
+                   __nv_bfloat16* __restrict__ dqkv, int L, int H, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base, sV = base + TILE_BYTES;
+  const uint32_t sQ = base + BW_OFF_RING1, sdO = base + BW_OFF_RING2;
+  const uint32_t barK = base + BW_OFF_BAR, barV = barK + 8;
+  const uint32_t barQ = barV + 8, barO = barQ + 8 * STAGES;
+  // [buffer][LSE * log2 e of the tile's 64 queries, then their D]
+  float* sStat = reinterpret_cast<float*>(smem_raw + (base - raw) + BW_OFF_STAT);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int k0 = blockIdx.x * BK, head = blockIdx.y, b = blockIdx.z;
+  const int nq = (L + BQ - 1) / BQ;
+  const size_t stat = (static_cast<size_t>(b) * H + head) * L;
+  if (tid == 0) {
+    mbar_init(barK);
+    mbar_init(barV);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(barQ + 8 * s);
+      mbar_init(barO + 8 * s);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // thread tid holds entry tid of a tile's statistics: LSE (tid < 64; +inf
+  // past L, so P = 0) or D (0 past L)
+  auto stat_of = [&](int t) {
+    const int row = t * BQ + (tid & 63);
+    if (tid < 64) return row < L ? lse[stat + row] * LOG2E : CUDART_INF_F;
+    return row < L ? Dbuf[stat + row] : 0.f;
+  };
+  sStat[tid] = stat_of(0);
+  __syncthreads();
+  if (tid == 0) {
+    tma_tile(sK, &qkv, barK, H + head, k0, b);
+    tma_tile(sV, &qkv, barV, 2 * H + head, k0, b);
+    for (int t = 0; t < STAGES && t < nq; ++t) {
+      tma_tile(sQ + t * TILE_BYTES, &qkv, barQ + 8 * t, head, t * BQ, b);
+      tma_tile(sdO + t * TILE_BYTES, &dom, barO + 8 * t, head, t * BQ, b);
+    }
+  }
+  const float sl2 = scale * LOG2E;
+  float dk[32], dv[32], st[32], dpt[32];
+  uint32_t pa[4][4], da[4][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    dk[i] = 0.f;
+    dv[i] = 0.f;
+  }
+  mbar_wait(barK, 0);
+  mbar_wait(barV, 0);
+  mbar_wait(barQ, 0);
+  mbar_wait(barO, 0);
+  issue_two_ss(st, dpt, sK, sQ, sV, sdO);
+  wg_wait<0>();
+  reg_fence(st);
+  reg_fence(dpt);
+  for (int t = 0; t < nq; ++t) {
+    const int sb = t % STAGES;
+    const float next = t + 1 < nq ? stat_of(t + 1) : 0.f;   // lands under this tile's work
+    __syncthreads();   // stage (t - 1) % STAGES and statistics buffer (t + 1) % 2 are free
+    if (tid == 0 && t >= 1 && t - 1 + STAGES < nq) {
+      const int sp = (t - 1) % STAGES, tn = t - 1 + STAGES;
+      tma_tile(sQ + sp * TILE_BYTES, &qkv, barQ + 8 * sp, head, tn * BQ, b);
+      tma_tile(sdO + sp * TILE_BYTES, &dom, barO + 8 * sp, head, tn * BQ, b);
+    }
+    if (t + 1 < nq) sStat[((t + 1) & 1) * 2 * BQ + tid] = next;
+    // st[4 j + e] is key r0 + 8 (e >> 1), query 8 j + 2 (lane % 4) + (e & 1)
+    const float* sl = sStat + (t & 1) * 2 * BQ + 2 * (lane % 4);
+    const float* sd = sl + BQ;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * j);
+      st[4 * j] = exp2_approx(fmaf(st[4 * j], sl2, -l2.x));
+      st[4 * j + 1] = exp2_approx(fmaf(st[4 * j + 1], sl2, -l2.y));
+      st[4 * j + 2] = exp2_approx(fmaf(st[4 * j + 2], sl2, -l2.x));
+      st[4 * j + 3] = exp2_approx(fmaf(st[4 * j + 3], sl2, -l2.y));
+    }
+    pack_a(st, pa);
+    issue_rs(dv, pa, sdO + sb * TILE_BYTES);   // dV += P^T dO
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(sd + 8 * j);
+      st[4 * j] *= dpt[4 * j] - d2.x;
+      st[4 * j + 1] *= dpt[4 * j + 1] - d2.y;
+      st[4 * j + 2] *= dpt[4 * j + 2] - d2.x;
+      st[4 * j + 3] *= dpt[4 * j + 3] - d2.y;
+    }
+    pack_a(st, da);
+    issue_rs(dk, da, sQ + sb * TILE_BYTES);    // dK += dS^T Q
+    if (t + 1 < nq) {
+      const int sn = (t + 1) % STAGES;
+      mbar_wait(barQ + 8 * sn, ((t + 1) / STAGES) & 1);
+      mbar_wait(barO + 8 * sn, ((t + 1) / STAGES) & 1);
+      issue_two_ss(st, dpt, sK, sQ + sn * TILE_BYTES, sV, sdO + sn * TILE_BYTES);
+    }
+    wg_wait<0>();
+    reg_fence(st);
+    reg_fence(dpt);
+    reg_fence(dk);
+    reg_fence(dv);
+    reg_fence(pa);
+    reg_fence(da);
+  }
+  const int r0 = warp * 16 + lane / 4;
+  const size_t rs = static_cast<size_t>(3) * H * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + r0 + 8 * r;
+    if (row >= L) continue;
+    __nv_bfloat16* dst = dqkv + (static_cast<size_t>(b) * L + row) * rs + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + (H + head) * HD + 8 * j) =
+          __floats2bfloat162_rn(dk[4 * j + 2 * r] * scale, dk[4 * j + 2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dst + (2 * H + head) * HD + 8 * j) =
+          __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// ---- float32 backward --------------------------------------------------------
+
+constexpr int FTILE = FT * HD;   // floats per 64 x 64 tile (16 KB)
+constexpr int HALF = FTHREADS / 2;
+
+// float offset of head dims 4 c4 .. 4 c4 + 3 of row r in a swizzled tile
+__device__ __forceinline__ int swz(int r, int c4) { return r * HD + 4 * (c4 ^ (r & 7)); }
+
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// barrier of the 128 threads of one half of the CTA (ids 1 and 2; 0 is __syncthreads)
+__device__ __forceinline__ void half_sync(int half) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + half), "n"(HALF) : "memory");
+}
+
+// rows row0..row0+63 of a (L, 64)-row float view with `stride` floats
+// between rows into a swizzled tile by cp.async; rows at or past L are zero
+__device__ __forceinline__ void load_tile_async(float* s, const float* __restrict__ src,
+                                                size_t stride, int row0, int L) {
+  for (int i = threadIdx.x; i < FT * HD / 4; i += FTHREADS) {
+    const int r = i >> 4, c = i & 15, row = row0 + r;
+    cp_async16(s + swz(r, c), src + static_cast<size_t>(row < L ? row : 0) * stride + 4 * c,
+               row < L);
+  }
+}
+
+// The products run on one half of the CTA each: thread t of a half holds
+// the 8 x 4 block rows ty + 8 i, columns tx + 16 j (or 4 tx + e), with
+// tx = t % 16, ty = t / 16; the 8 lanes of a quarter-warp share ty.
+
+// acc[i][j] += sum_d A[ty + 8 i][d] B[tx + 16 j][d] (two swizzled tiles)
+__device__ __forceinline__ void mm_nt(float (&acc)[8][4], const float* A, const float* B, int tx,
+                                      int ty) {
+#pragma unroll 1
+  for (int c = 0; c < HD / 4; ++c) {
+    float4 v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = *reinterpret_cast<const float4*>(B + swz(tx + 16 * j, c));
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 a = *reinterpret_cast<const float4*>(A + swz(ty + 8 * i, c));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(a.x, v[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a.y, v[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a.z, v[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a.w, v[j].w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][e] += sum_k A[ty + 8 i][k] B[k][4 tx + e] over k in [4 c0, 4 c1)
+// (two swizzled tiles)
+__device__ __forceinline__ void mm_nn(float (&acc)[8][4], const float* A, const float* B, int tx,
+                                      int ty, int c0, int c1) {
+#pragma unroll 1
+  for (int c = c0; c < c1; ++c) {
+    float4 a[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a[i] = *reinterpret_cast<const float4*>(A + swz(ty + 8 * i, c));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float4 v = *reinterpret_cast<const float4*>(B + swz(4 * c + e, tx));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float x = comp(a[i], e);
+        acc[i][0] = fmaf(x, v.x, acc[i][0]);
+        acc[i][1] = fmaf(x, v.y, acc[i][1]);
+        acc[i][2] = fmaf(x, v.z, acc[i][2]);
+        acc[i][3] = fmaf(x, v.w, acc[i][3]);
+      }
+    }
+  }
+}
+
+// element (r, c) of a 64 x 64 block in a swizzled tile
+__device__ __forceinline__ float& at_swz(float* s, int r, int c) {
+  return s[swz(r, c >> 2) + (c & 3)];
+}
+
+// dQ for one (query tile, head, batch), and D = rowsum(dO * O) for its
+// rows. Per key tile: half 0 forms S = Q K^T and P, half 1 dP = dO V^T;
+// half 1 turns P into dS; each half sums dQ over half of the tile's keys
+// (the two partial sums are added once, at the end). The K/V tiles are
+// single-buffered, which keeps two CTAs per SM: the next tile's copy runs
+// under the other CTA's products.
+__global__ void __launch_bounds__(FTHREADS, 2)
+flash_bwd_dq_f32(const float* __restrict__ qkv, const float* __restrict__ out,
+                 const float* __restrict__ dout, const float* __restrict__ lse,
+                 float* __restrict__ Dbuf, float* __restrict__ dqkv, int L, int H, float scale) {
+  extern __shared__ float4 fsm4[];
+  float* sQ = reinterpret_cast<float*>(fsm4);
+  float* sdO = sQ + FTILE;
+  float* sK = sdO + FTILE;
+  float* sV = sK + FTILE;
+  float* sP = sV + FTILE;   // P, then dS
+  float* sL = sP + FTILE;
   float* sD = sL + FT;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int half = threadIdx.x / HALF, tx = threadIdx.x & 15, ty = (threadIdx.x % HALF) >> 4;
   const int q0 = blockIdx.x * FT, h = blockIdx.y, b = blockIdx.z;
+  const int nt = (L + FT - 1) / FT;
   const size_t rs = static_cast<size_t>(3) * H * HD, os = static_cast<size_t>(H) * HD;
-  const T* base = qkv + static_cast<size_t>(b) * L * rs;
+  const float* base = qkv + static_cast<size_t>(b) * L * rs;
+  const float* obase = out + static_cast<size_t>(b) * L * os + h * HD;
   const size_t stat = (static_cast<size_t>(b) * H + h) * L;
-  load_tile(sQ, base + h * HD, rs, q0, L);
-  load_tile(sdO, dout + static_cast<size_t>(b) * L * os + h * HD, os, q0, L);
-  load_tile(sK, out + static_cast<size_t>(b) * L * os + h * HD, os, q0, L);   // O, for D
+  load_tile_async(sQ, base + h * HD, rs, q0, L);
+  load_tile_async(sdO, dout + static_cast<size_t>(b) * L * os + h * HD, os, q0, L);
+  load_tile_async(sK, base + (H + h) * HD, rs, 0, L);
+  load_tile_async(sV, base + (2 * H + h) * HD, rs, 0, L);
+  cp_commit();
+  cp_wait<0>();
   __syncthreads();
   {
     // four threads per row, 16 products each
-    const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
+    const int r = threadIdx.x >> 2, part = threadIdx.x & 3, row = q0 + r;
     float acc = 0.f;
+    if (row < L) {
 #pragma unroll
-    for (int d = 16 * part; d < 16 * part + 16; ++d) acc = fmaf(sdO[r * LD + d], sK[r * LD + d], acc);
+      for (int c = 0; c < 4; ++c) {
+        const float4 o = *reinterpret_cast<const float4*>(obase + row * os + 16 * part + 4 * c);
+        const float4 g = *reinterpret_cast<const float4*>(sdO + swz(r, 4 * part + c));
+        acc = fmaf(g.x, o.x, acc);
+        acc = fmaf(g.y, o.y, acc);
+        acc = fmaf(g.z, o.z, acc);
+        acc = fmaf(g.w, o.w, acc);
+      }
+    }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     if (part == 0) {
-      const int row = q0 + r;
       sD[r] = acc;
       sL[r] = row < L ? lse[stat + row] : CUDART_INF_F;   // padded rows: P = 0
       if (row < L) Dbuf[stat + row] = acc;
     }
   }
-  float dq[4][4] = {};
-  for (int k0 = 0; k0 < L; k0 += FT) {
-    __syncthreads();   // O (first pass) or the last tile's K, V and dS are read
-    load_tile(sK, base + (H + h) * HD, rs, k0, L);
-    load_tile(sV, base + (2 * H + h) * HD, rs, k0, L);
+  float dq[8][4] = {};
+  for (int t = 0; t < nt; ++t) {
+    cp_wait<0>();
+    __syncthreads();   // tile t is in (and, first, D and the LSE are stored)
+    float x[8][4] = {};   // half 0: S, half 1: dP
+    mm_nt(x, half ? sdO : sQ, half ? sV : sK, tx, ty);
+    const int k0 = t * FT;
+    if (half == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = ty + 8 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          at_swz(sP, r, tx + 16 * j) =
+              k0 + tx + 16 * j < L ? expf(fmaf(x[i][j], scale, -sL[r])) : 0.f;
+      }
+    }
     __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float a[4], g[4], kv[4], vv[4];
+    if (half == 1) {   // dS = P (dP - D) in place of P
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = sQ[(ty + 16 * i) * LD + d];
-        g[i] = sdO[(ty + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = sK[(tx + 16 * j) * LD + d];
-        vv[j] = sV[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i) {
+        const int r = ty + 8 * i;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], vv[j], dp[i][j]);
+          float& p = at_swz(sP, r, tx + 16 * j);
+          p *= x[i][j] - sD[r];
         }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        const float p = key < L ? expf(fmaf(s[i][j], scale, -sL[r])) : 0.f;
-        sS[r * LD + tx + 16 * j] = p * (dp[i][j] - sD[r]);
       }
     }
     __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < FT; ++c) {
-      float ds[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = sS[(ty + 16 * i) * LD + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dq[i][j] = fmaf(ds[i], kv[j], dq[i][j]);
+    mm_nn(dq, sP, sK, tx, ty, 8 * half, 8 * half + 8);
+    __syncthreads();   // K, V and dS are read: the buffers take tile t + 1
+    if (t + 1 < nt) {
+      load_tile_async(sK, base + (H + h) * HD, rs, (t + 1) * FT, L);
+      load_tile_async(sV, base + (2 * H + h) * HD, rs, (t + 1) * FT, L);
     }
+    cp_commit();
   }
+  // dQ = half 0's sum over the first 32 keys of each tile + half 1's
+  if (half == 1)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= L) continue;
-    T* dst = dqkv + (static_cast<size_t>(b) * L + row) * rs + h * HD;
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<float4*>(sP + (ty + 8 * i) * HD + 4 * tx) =
+          make_float4(dq[i][0], dq[i][1], dq[i][2], dq[i][3]);
+  __syncthreads();
+  if (half == 0) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dst[tx + 16 * j] = from_f<T>(dq[i][j] * scale);
+    for (int i = 0; i < 8; ++i) {
+      const int row = q0 + ty + 8 * i;
+      if (row >= L) continue;
+      const float4 o = *reinterpret_cast<const float4*>(sP + (ty + 8 * i) * HD + 4 * tx);
+      *reinterpret_cast<float4*>(dqkv + (static_cast<size_t>(b) * L + row) * rs + h * HD +
+                                 4 * tx) =
+          make_float4((dq[i][0] + o.x) * scale, (dq[i][1] + o.y) * scale,
+                      (dq[i][2] + o.z) * scale, (dq[i][3] + o.w) * scale);
+    }
   }
 }
 
-// dK and dV for one (key tile, head, batch); reads D from the dQ kernel
-template <typename T>
-__global__ void __launch_bounds__(FTHREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ Dbuf,
-                     T* __restrict__ dqkv, int L, int H, float scale) {
-  extern __shared__ float fsm[];
-  float* sK = fsm;
-  float* sV = sK + FT * LD;
-  float* sQ = sV + FT * LD;
-  float* sdO = sQ + FT * LD;
-  float* sP = sdO + FT * LD;    // P^T: key rows, query columns
-  float* sdS = sP + FT * LD;    // dS^T
-  float* sL = sdS + FT * LD;
+// dK and dV for one (key tile, head, batch); reads D from the dQ kernel.
+// Per query tile: half 0 forms S^T = K Q^T and P^T, then dV += P^T dO;
+// half 1 forms dP^T = V dO^T, then dS^T = P^T (dP^T - D) and dK += dS^T Q.
+__global__ void __launch_bounds__(FTHREADS, 2)
+flash_bwd_dkv_f32(const float* __restrict__ qkv, const float* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ Dbuf,
+                  float* __restrict__ dqkv, int L, int H, float scale) {
+  extern __shared__ float4 fsm4[];
+  float* sK = reinterpret_cast<float*>(fsm4);
+  float* sV = sK + FTILE;
+  float* sQ = sV + FTILE;
+  float* sdO = sQ + FTILE;
+  float* sP = sdO + FTILE;   // P^T: key rows, query columns
+  float* sS = sP + FTILE;    // dS^T
+  float* sL = sS + FTILE;
   float* sD = sL + FT;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int half = threadIdx.x / HALF, tx = threadIdx.x & 15, ty = (threadIdx.x % HALF) >> 4;
   const int k0 = blockIdx.x * FT, h = blockIdx.y, b = blockIdx.z;
+  const int nq = (L + FT - 1) / FT;
   const size_t rs = static_cast<size_t>(3) * H * HD, os = static_cast<size_t>(H) * HD;
-  const T* base = qkv + static_cast<size_t>(b) * L * rs;
+  const float* base = qkv + static_cast<size_t>(b) * L * rs;
+  const float* gbase = dout + static_cast<size_t>(b) * L * os + h * HD;
   const size_t stat = (static_cast<size_t>(b) * H + h) * L;
-  load_tile(sK, base + (H + h) * HD, rs, k0, L);
-  load_tile(sV, base + (2 * H + h) * HD, rs, k0, L);
-  float dk[4][4] = {}, dv[4][4] = {};
-  for (int q0 = 0; q0 < L; q0 += FT) {
-    __syncthreads();   // the last query tile's Q, dO, P and dS are read
-    load_tile(sQ, base + h * HD, rs, q0, L);
-    load_tile(sdO, dout + static_cast<size_t>(b) * L * os + h * HD, os, q0, L);
-    if (threadIdx.x < FT) {
-      const int row = q0 + threadIdx.x;
-      sL[threadIdx.x] = row < L ? lse[stat + row] : CUDART_INF_F;   // padded rows: P = 0
-      sD[threadIdx.x] = row < L ? Dbuf[stat + row] : 0.f;
+  load_tile_async(sK, base + (H + h) * HD, rs, k0, L);
+  load_tile_async(sV, base + (2 * H + h) * HD, rs, k0, L);
+  load_tile_async(sQ, base + h * HD, rs, 0, L);
+  load_tile_async(sdO, gbase, os, 0, L);
+  cp_commit();
+  float acc[8][4] = {};   // half 0: dV, half 1: dK
+  for (int t = 0; t < nq; ++t) {
+    // the tile's statistics (the last reads of the previous ones were
+    // before the previous iteration's last barrier)
+    if (threadIdx.x < 2 * FT) {
+      const int row = t * FT + (threadIdx.x & 63);
+      if (threadIdx.x < FT)
+        sL[threadIdx.x] = row < L ? lse[stat + row] : CUDART_INF_F;   // padded rows: P = 0
+      else
+        sD[threadIdx.x - FT] = row < L ? Dbuf[stat + row] : 0.f;
+    }
+    cp_wait<0>();
+    __syncthreads();
+    // rows are this CTA's keys ty + 8 i, columns the queries tx + 16 j; keys
+    // at or past L have zero rows and are never written: no mask needed
+    float x[8][4] = {};   // half 0: S^T, half 1: dP^T
+    mm_nt(x, half ? sV : sK, half ? sdO : sQ, tx, ty);
+    if (half == 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float lq = sL[tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          at_swz(sP, ty + 8 * i, tx + 16 * j) = expf(fmaf(x[i][j], scale, -lq));
+      }
     }
     __syncthreads();
-    // S^T and dP^T: rows are this CTA's keys ty + 16 i, columns the queries tx + 16 j
-    float st[4][4] = {}, dpt[4][4] = {};
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float kv[4], vv[4], qv[4], gv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = sK[(ty + 16 * i) * LD + d];
-        vv[i] = sV[(ty + 16 * i) * LD + d];
-      }
+    if (half == 0) {
+      mm_nn(acc, sP, sdO, tx, ty, 0, FT / 4);   // dV += P^T dO
+    } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        qv[j] = sQ[(tx + 16 * j) * LD + d];
-        gv[j] = sdO[(tx + 16 * j) * LD + d];
+        const int q = tx + 16 * j;
+        const float dq = sD[q];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          at_swz(sS, ty + 8 * i, q) = at_swz(sP, ty + 8 * i, q) * (x[i][j] - dq);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
-          dpt[i][j] = fmaf(vv[i], gv[j], dpt[i][j]);
-        }
+      half_sync(1);
+      mm_nn(acc, sS, sQ, tx, ty, 0, FT / 4);    // dK += dS^T Q
     }
-    // keys at or past L have zero rows and are never written: no mask needed
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tx + 16 * j;
-        const float p = expf(fmaf(st[i][j], scale, -sL[r]));
-        sP[(ty + 16 * i) * LD + r] = p;
-        sdS[(ty + 16 * i) * LD + r] = p * (dpt[i][j] - sD[r]);
-      }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < FT; ++r) {
-      float p[4], ds[4], g[4], q[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = sP[(ty + 16 * i) * LD + r];
-        ds[i] = sdS[(ty + 16 * i) * LD + r];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        g[j] = sdO[r * LD + tx + 16 * j];
-        q[j] = sQ[r * LD + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          dv[i][j] = fmaf(p[i], g[j], dv[i][j]);
-          dk[i][j] = fmaf(ds[i], q[j], dk[i][j]);
-        }
+    __syncthreads();   // Q, dO, P^T and dS^T are read: the buffers take tile t + 1
+    if (t + 1 < nq) {
+      load_tile_async(sQ, base + h * HD, rs, (t + 1) * FT, L);
+      load_tile_async(sdO, gbase, os, (t + 1) * FT, L);
     }
+    cp_commit();
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty + 16 * i;
+  for (int i = 0; i < 8; ++i) {
+    const int row = k0 + ty + 8 * i;
     if (row >= L) continue;
-    T* dst = dqkv + (static_cast<size_t>(b) * L + row) * rs;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      dst[(H + h) * HD + tx + 16 * j] = from_f<T>(dk[i][j] * scale);
-      dst[(2 * H + h) * HD + tx + 16 * j] = from_f<T>(dv[i][j]);
-    }
+    const float s = half ? scale : 1.f;
+    *reinterpret_cast<float4*>(dqkv + (static_cast<size_t>(b) * L + row) * rs +
+                               ((half ? 1 : 2) * H + h) * HD + 4 * tx) =
+        make_float4(acc[i][0] * s, acc[i][1] * s, acc[i][2] * s, acc[i][3] * s);
   }
 }
 
 constexpr int F32_SMEM = 4 * FT * LD * 4;
-constexpr int DQ_SMEM = (5 * FT * LD + 2 * FT) * 4;
-constexpr int DKV_SMEM = (6 * FT * LD + 2 * FT) * 4;
+constexpr int DQ_F32_SMEM = (5 * FTILE + 2 * FT) * 4;
+constexpr int DKV_F32_SMEM = (6 * FTILE + 2 * FT) * 4;
 
+// dynamic shared memory up to `bytes`, and all of the SM's unified memory
+// as shared memory (several CTAs per SM)
 template <typename K>
-cudaError_t allow_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+cudaError_t prepare(K kernel, int bytes) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  return err;
 }
 
 int launch_bf16(const void* qkv, void* out, float* lse, int B, int L, int H, float scale,
@@ -771,21 +1255,8 @@ int launch_bf16(const void* qkv, void* out, float* lse, int B, int L, int H, flo
   EncodeTiled encode = encoder();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap map;
-  const cuuint64_t row = 3ull * H * HD * 2;  // bytes per token
-  const cuuint64_t dims[4] = {HD, 3ull * H, (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {HD * 2, row, row * L};
-  const cuuint32_t box[4] = {HD, 1, BK, 1};
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(qkv), dims, strides,
-             box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-  // all of the SM's unified memory as shared memory: several CTAs per SM
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_qkv_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (!encode_map(encode, &map, qkv, 3 * H, L, B)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare(flash_qkv_kernel, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((L + BQ - 1) / BQ, H, B);
   flash_qkv_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
@@ -793,30 +1264,14 @@ int launch_bf16(const void* qkv, void* out, float* lse, int B, int L, int H, flo
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd_dq(const void* qkv, const void* out, const void* dout, const float* lse,
-                  float* D, void* dqkv, int B, int L, int H, float scale, void* stream) {
-  auto kernel = flash_bwd_dq_kernel<T>;
-  cudaError_t err = allow_smem(kernel, DQ_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + FT - 1) / FT, H, B);
-  kernel<<<grid, FTHREADS, DQ_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(out), static_cast<const T*>(dout), lse, D,
-      static_cast<T*>(dqkv), L, H, scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_bwd_dkv(const void* qkv, const void* dout, const float* lse, const float* D,
-                   void* dqkv, int B, int L, int H, float scale, void* stream) {
-  auto kernel = flash_bwd_dkv_kernel<T>;
-  cudaError_t err = allow_smem(kernel, DKV_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + FT - 1) / FT, H, B);
-  kernel<<<grid, FTHREADS, DKV_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout), lse, D, static_cast<T*>(dqkv), L,
-      H, scale);
-  return (int)cudaGetLastError();
+// the tensor maps of the bf16 backward: the packed qkv and dout
+int backward_maps(const void* qkv, const void* dout, int B, int L, int H, CUtensorMap* mq,
+                  CUtensorMap* mo) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  if (!encode_map(encode, mq, qkv, 3 * H, L, B) || !encode_map(encode, mo, dout, H, L, B))
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
@@ -824,7 +1279,8 @@ int launch_bwd_dkv(const void* qkv, const void* dout, const float* lse, const fl
 // Every entry point returns cudaGetLastError() after its launch, or the
 // error that kept it from launching. Layouts: qkv (B, L, 3, H, 64) and
 // dqkv the same; out and dout (B, L, H, 64); lse and D (B, H, L) float32.
-// All contiguous; the bf16 forward also needs qkv 16-byte aligned.
+// All contiguous; the bf16 forward needs qkv 16-byte aligned, the backward
+// qkv, out and dout.
 
 // the serving call: bf16, no statistics
 extern "C" int flash_attn_qkv_forward(const void* qkv, void* out, int B, int L, int H,
@@ -842,7 +1298,8 @@ extern "C" int flash_attn_qkv_forward_lse(const void* qkv, void* out, void* lse,
 extern "C" int flash_attn_qkv_forward_f32(const void* qkv, void* out, void* lse, int B, int L,
                                           int H, float scale, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(flash_f32_kernel, F32_SMEM);
+  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, F32_SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((L + FT - 1) / FT, H, B);
   flash_f32_kernel<<<grid, FTHREADS, F32_SMEM, static_cast<cudaStream_t>(stream)>>>(
@@ -859,9 +1316,25 @@ extern "C" int flash_attn_qkv_backward_dq(const void* qkv, const void* out, cons
   if (B <= 0 || L <= 0 || H <= 0 || dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(D);
-  return dtype == 0 ? launch_bwd_dq<float>(qkv, out, dout, l, d, dqkv, B, L, H, scale, stream)
-                    : launch_bwd_dq<__nv_bfloat16>(qkv, out, dout, l, d, dqkv, B, L, H, scale,
-                                                   stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((L + FT - 1) / FT, H, B);
+  if (dtype == 0) {
+    cudaError_t err = prepare(flash_bwd_dq_f32, DQ_F32_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dq_f32<<<grid, FTHREADS, DQ_F32_SMEM, s>>>(
+        static_cast<const float*>(qkv), static_cast<const float*>(out),
+        static_cast<const float*>(dout), l, d, static_cast<float*>(dqkv), L, H, scale);
+    return (int)cudaGetLastError();
+  }
+  CUtensorMap mq, mo;
+  int e = backward_maps(qkv, dout, B, L, H, &mq, &mo);
+  if (e != 0) return e;
+  cudaError_t err = prepare(flash_bwd_dq_bf16, (int)BW_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_bf16<<<grid, THREADS, BW_SMEM, s>>>(
+      mq, mo, static_cast<const __nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(dout), l,
+      d, static_cast<__nv_bfloat16*>(dqkv), L, H, scale);
+  return (int)cudaGetLastError();
 }
 
 // dK and dV into dqkv's k and v slots; D from flash_attn_qkv_backward_dq
@@ -871,7 +1344,23 @@ extern "C" int flash_attn_qkv_backward_dkv(const void* qkv, const void* dout, co
   if (B <= 0 || L <= 0 || H <= 0 || dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(D);
-  return dtype == 0 ? launch_bwd_dkv<float>(qkv, dout, l, d, dqkv, B, L, H, scale, stream)
-                    : launch_bwd_dkv<__nv_bfloat16>(qkv, dout, l, d, dqkv, B, L, H, scale,
-                                                    stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((L + FT - 1) / FT, H, B);
+  if (dtype == 0) {
+    cudaError_t err = prepare(flash_bwd_dkv_f32, DKV_F32_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dkv_f32<<<grid, FTHREADS, DKV_F32_SMEM, s>>>(
+        static_cast<const float*>(qkv), static_cast<const float*>(dout), l, d,
+        static_cast<float*>(dqkv), L, H, scale);
+    return (int)cudaGetLastError();
+  }
+  CUtensorMap mq, mo;
+  int e = backward_maps(qkv, dout, B, L, H, &mq, &mo);
+  if (e != 0) return e;
+  cudaError_t err = prepare(flash_bwd_dkv_bf16, (int)BW_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkv_bf16<<<grid, THREADS, BW_SMEM, s>>>(mq, mo, l, d,
+                                                    static_cast<__nv_bfloat16*>(dqkv), L, H,
+                                                    scale);
+  return (int)cudaGetLastError();
 }

@@ -11,9 +11,9 @@ kernel) or raises.
 ``flash_attention_qkv_grad(qkv, heads)`` is the same function under
 autograd: on the card a ``torch.autograd.Function`` whose forward launches
 the kernel with the per-row log-sum-exp saved and whose backward launches
-the two backward kernels (dQ, then dK and dV) and returns the gradient
-packed as (B, L, 3 C); on CPU tensors ``attention_qkv_plain`` under
-autograd. ``attention_qkv_backward_plain`` is the backward written out by
+the two backward kernels (dQ, then dK and dV; bf16 on the tensor cores,
+float32 on FP32 FMA) and returns the gradient packed as (B, L, 3 C); on
+CPU tensors ``attention_qkv_plain`` under autograd. ``attention_qkv_backward_plain`` is the backward written out by
 formula, for the checks on the card.
 
 Launch counts: ``LAUNCHES`` (bf16 forward), ``LAUNCHES_F32`` (float32
@@ -140,6 +140,9 @@ def flash_attention_qkv_backward(qkv, out, lse, dout, heads: int):
     if not all(t.is_cuda and t.device == qkv.device and t.is_contiguous()
                for t in (out, lse, dout)):
         raise ValueError("flash_attention_qkv_backward: inputs must be contiguous on qkv's card")
+    if out.data_ptr() % 16 or dout.data_ptr() % 16:
+        raise ValueError("flash_attention_qkv_backward: out and dout must be 16-byte aligned "
+                         "(the kernels read them by TMA or 16-byte copies)")
     dqkv = torch.empty_like(qkv)
     if B * L == 0:
         return dqkv
@@ -174,7 +177,10 @@ class FlashAttentionQKV(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         qkv, out, lse = ctx.saved_tensors
-        return flash_attention_qkv_backward(qkv, out, lse, dout.contiguous(), ctx.heads), None
+        dout = dout.contiguous()
+        if dout.data_ptr() % 16:     # a view at an odd offset: a fresh allocation is aligned
+            dout = dout.clone()
+        return flash_attention_qkv_backward(qkv, out, lse, dout, ctx.heads), None
 
 
 def flash_attention_qkv_grad(qkv, heads: int):

@@ -6,7 +6,10 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
   0  the card (nvidia-smi), torch and CUDA versions; builds both kernels
-     with nvcc for sm_90a and prints the build time
+     with nvcc for sm_90a and prints the build time, ptxas's register and
+     spill lines, and the HGMMA instructions of each bf16 K2 kernel in the
+     built library (cuobjdump -sass): fails if either bf16 backward kernel
+     has none
   1  corr kernel (K1, both pyramid levels in one launch) against its plain
      version at the main-path shapes (E = 9600; level 2 at coords / 4) on
      the phase-1 draw, centers past every border, near-rigid patches and
@@ -70,8 +73,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
      first update with loop edges ("8-loop-update")
   9  training (``cdvslam_tpu_torch.train.cli``) on a synthetic TartanAir
      tree at 480 x 640 with seeded random weights: 3 sparse and 2 dense
-     CDVNet steps in float32, a bf16 sparse step and a DPVO step; ms per
-     step, peak memory, K2 launches against 12 blocks x 2 forward (the
+     CDVNet steps in float32, two bf16 sparse steps and a DPVO step; ms
+     per step, peak memory, K2 launches against 12 blocks x 2 forward (the
      checkpointed extractor runs again in the backward) and 12 of each
      backward kernel per step, a nonzero gradient in every parameter group
      and every DINO block's qkv; one small step, twice on the card, held
@@ -84,7 +87,10 @@ phase-6 times as ms_loop_update and friends, and phase 8's as ms_c128,
 ms_dpvo_update, ms_dpv_loop_update and friends; both records add
 launches_loop_path, launches_cdvo_pp_path and launches_dpvo_path; the
 float32 forward and the two backward kernels of K2 have records of their
-own, timed at the training shape, with phase 9's launches),
+own, timed at the training shape, with phase 9's launches, and the bf16
+backward kernels (wgmma kernels apart from the float32 ones) records of
+their own with the launches of phase 9's bf16 run; the four backward
+records carry the times of the simple FP32-FMA kernels they replaced),
 the nvidia-smi line, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -95,11 +101,11 @@ wall time), launches per frame, the port's two kernels and the top
 kernels by device time; then the same for the loop-closure path of
 phase 6 after 100 warm-up frames, for the CDVO++ path of phase 7 after
 60 (with the heads' device time and launches per frame) and for the DPVO
-path of phase 8 after 60; then a float32 sparse training step (phase 9's
-setting, after two untraced steps). The full tables go to
+path of phase 8 after 60; then a float32 and a bf16 sparse training step
+(phase 9's setting, each after two untraced steps). The full tables go to
 DIR/profile_{main,loop,cdvo_pp,dpvo}_path.txt and
-DIR/profile_train_step.txt. It prints neither the kernels line nor the ok
-line.
+DIR/profile_train_step{,_bf16}.txt. It prints neither the kernels line nor
+the ok line.
 It never imports JAX or the JAX package. Needs one CUDA card.
 """
 import argparse
@@ -142,6 +148,25 @@ def cuda_time(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def _hgmma_counts(lib):
+    """HGMMA instructions per kernel (mangled name) in a built library's SASS."""
+    from cdvslam_tpu_torch.ops import native
+    tool = Path(native.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+BF16_K2 = ("flash_qkv_kernel", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
+
+
 def phase0():
     import torch
     from cdvslam_tpu_torch.ops import native
@@ -152,13 +177,18 @@ def phase0():
     builds = native.build()
     wall = time.perf_counter() - t0
     regs = {name: [ln.strip() for ln in b["log"].splitlines()
-                  if "registers" in ln or "spill" in ln or "(C75" in ln]
+                  if "registers" in ln or "spill" in ln or "(C75" in ln
+                  or "entry function" in ln]
             for name, b in builds.items()}
+    per_fn = _hgmma_counts(native.lib_path("flash_attn"))
+    hgmma = {k: sum(n for fn, n in per_fn.items() if k in fn) for k in BF16_K2}
     emit({"phase": 0, "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "build_wall_s": round(wall, 3),
           "build_s": {k: round(v["seconds"], 3) for k, v in builds.items()},
-          "ptxas": regs})
+          "ptxas": regs, "hgmma": hgmma})
+    if not (hgmma["flash_bwd_dq_bf16"] and hgmma["flash_bwd_dkv_bf16"]):
+        raise SystemExit(f"phase 0: a bf16 backward kernel has no HGMMA: {hgmma}")
     return smi
 
 
@@ -344,12 +374,14 @@ def _attn_flops(B, L, h=6, d=64):
     return 4 * L * L * d * h * B
 
 
-def _bwd_native(which, qkv, out, lse, dout, D, dqkv):
+def _bwd_native(which, qkv, out, lse, dout, D, dqkv, lib=None):
     """One launch of a backward kernel through the C entry point (``dq``
-    also writes D, which ``dkv`` reads), for timing each kernel alone."""
+    also writes D, which ``dkv`` reads), for timing each kernel alone; of
+    the current source, or of another build of it (``lib``)."""
     import torch
     from cdvslam_tpu_torch.ops import native
-    lib = native.load("flash_attn")
+    if lib is None:
+        lib = native.load("flash_attn")
     B, L, C3 = qkv.shape
     stream = torch.cuda.current_stream().cuda_stream
     dt = 0 if qkv.dtype == torch.float32 else 1
@@ -1219,15 +1251,15 @@ def phase9(smi):
     """Training at full width on a synthetic TartanAir tree at 480 x 640
     through the training entry point (``train.cli.main``): CDVNet with
     seeded random weights, 3 sparse steps (F 15, M 80, 18 iterations) and 2
-    dense steps (F 4, M 1530, 4 iterations) in float32, one sparse step in
-    bf16, and one DPVO step (M 96). Each run is driven with the kernel
-    counts set to 0 and read after it. Checks: finite losses and no NaN
-    skip; K2 launches equal to 12 blocks x 2 (the checkpointed extractor
-    runs forward again in the backward pass) forward and 12 of each
-    backward kernel per step, none under DPVO; a nonzero gradient in every
-    parameter group and in every DINO block's qkv; then one small training
-    step (F 4, M 4, 48 x 64) on the card held to the CPU port's float32 and
-    float64 runs (``_train_step_card_vs_cpu``)."""
+    dense steps (F 4, M 1530, 4 iterations) in float32, two sparse steps in
+    bf16 (the second a steady one), and one DPVO step (M 96). Each run is
+    driven with the kernel counts set to 0 and read after it. Checks: finite
+    losses and no NaN skip; K2 launches equal to 12 blocks x 2 (the
+    checkpointed extractor runs forward again in the backward pass) forward
+    and 12 of each backward kernel per step, none under DPVO; a nonzero
+    gradient in every parameter group and in every DINO block's qkv; then
+    one small training step (F 4, M 4, 48 x 64) on the card held to the CPU
+    port's float32 and float64 runs (``_train_step_card_vs_cpu``)."""
     import tempfile
     import numpy as np
     import torch
@@ -1241,7 +1273,7 @@ def phase9(smi):
               "--outdir", str(tmp / "checkpoints"), "--logdir", str(tmp / "runs"),
               "--eval_every", "1000000"]
     runs = {"f32": ("cdv", ["--schedule", "sparse,sparse,sparse,dense,dense"]),
-            "bf16": ("cdv", ["--schedule", "sparse", "--compute_dtype", "bfloat16"]),
+            "bf16": ("cdv", ["--schedule", "sparse,sparse", "--compute_dtype", "bfloat16"]),
             "dpvo": ("dpv", ["--schedule", "sparse"])}
     out, checks = {"phase": 9, "tree_s": tree_s, "runs": {}}, {}
     for run, (network, extra) in runs.items():
@@ -1280,7 +1312,7 @@ def phase9(smi):
     out.update({"checks": checks, "card": smi, "ok": ok,
                 "cuts": {"weights": "random (seed 0)",
                          "data": "a synthetic 70-frame TartanAir-format scene at 480 x 640",
-                         "steps": "3 sparse + 2 dense float32, 1 sparse bf16, 1 DPVO"}})
+                         "steps": "3 sparse + 2 dense float32, 2 sparse bf16, 1 DPVO"}})
     emit(out)
     if not ok:
         raise SystemExit(f"phase 9: training checks failed: {checks}")
@@ -1429,8 +1461,8 @@ def _profile_window(slam, frames, intr, start, win, table_path):
                                           for e in ops}}
 
 
-def _profile_train(out_dir):
-    """Three float32 sparse training steps through the CLI on phase 9's
+def _profile_train(out_dir, dtype="float32"):
+    """Three sparse training steps in ``dtype`` through the CLI on phase 9's
     synthetic tree: the second timed untraced, the third under
     torch.profiler (device busy time and idle share against the untraced
     step, launches, K2's kernels, the top kernels and host ops)."""
@@ -1453,16 +1485,17 @@ def _profile_train(out_dir):
 
     cli.main(["cdv", "--datapath", str(tmp / "TartanAir"), "--scene_info", str(pickle_path),
               "--outdir", str(tmp / "checkpoints"), "--logdir", str(tmp / "runs"),
-              "--schedule", "sparse,sparse,sparse"], on_step=on_step)
+              "--schedule", "sparse,sparse,sparse", "--compute_dtype", dtype], on_step=on_step)
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
     ops = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA),
                  key=lambda e: -e.self_cpu_time_total)[:10]
-    (out_dir / "profile_train_step.txt").write_text(
+    name = "f32" if dtype == "float32" else "bf16"
+    (out_dir / f"profile_train_step{'' if name == 'f32' else '_bf16'}.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=60))
-    emit({"phase": "profile", "path": "train_sparse_f32", "untraced_step_ms": rec[2],
+    emit({"phase": "profile", "path": f"train_sparse_{name}", "untraced_step_ms": rec[2],
           "traced_step_ms": rec[3], "device_busy_ms": busy_ms,
           "device_idle_share": 1.0 - busy_ms / rec[2],
           "kernel_launches": sum(e.count for e in kernels),
@@ -1501,6 +1534,7 @@ def profile_paths(out_dir):
         del slam
         torch.cuda.empty_cache()
     _profile_train(out_dir)
+    _profile_train(out_dir, "bfloat16")
 
 
 def main():
@@ -1594,29 +1628,33 @@ def main():
     ]
     t, runs = train_rec["times"], train["runs"]
     per = ("one call at the sparse training shape, packed qkv (15, 1611, 1152); ms, "
-           "plain_ms and library_ms from phase 2-train; launches: phase 9's float32 run "
-           "(3 sparse + 2 dense steps)")
-    for name, key, src, replaces, err in (
-            ("dino_flash_attn_f32", "fwd", "fwd_f32",
+           "plain_ms and library_ms from phase 2-train; launches: phase 9's {} run ({})")
+    dq_tpu = ("jax/experimental/pallas/ops/tpu/flash_attention.py:1287 (_flash_attention_bwd_dq, "
+              "reached from cdvslam_tpu/models/dinov2.py:69)")
+    dkv_tpu = ("jax/experimental/pallas/ops/tpu/flash_attention.py:941 "
+               "(_flash_attention_bwd_dkv, reached from cdvslam_tpu/models/dinov2.py:69)")
+    for name, key, dt, src, replaces in (
+            ("dino_flash_attn_f32", "fwd", "f32", "fwd_f32",
              "cdvslam_tpu/models/dinov2.py:53 (library _flash_attention_impl, "
-             "jax/experimental/pallas/ops/tpu/flash_attention.py:589)", "f32"),
-            ("dino_flash_attn_bwd_dq", "dq", "bwd_dq",
-             "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 (_flash_attention_bwd_dq, "
-             "reached from cdvslam_tpu/models/dinov2.py:69)", "bwd_f32"),
-            ("dino_flash_attn_bwd_dkv", "dkv", "bwd_dkv",
-             "jax/experimental/pallas/ops/tpu/flash_attention.py:941 (_flash_attention_bwd_dkv, "
-             "reached from cdvslam_tpu/models/dinov2.py:69)", "bwd_f32")):
-        rec = t[f"{key}_f32"]
+             "jax/experimental/pallas/ops/tpu/flash_attention.py:589)"),
+            ("dino_flash_attn_bwd_dq", "dq", "f32", "bwd_dq", dq_tpu),
+            ("dino_flash_attn_bwd_dkv", "dkv", "f32", "bwd_dkv", dkv_tpu),
+            ("dino_flash_attn_bwd_dq_bf16", "dq", "bf16", "bwd_dq", dq_tpu),
+            ("dino_flash_attn_bwd_dkv_bf16", "dkv", "bf16", "bwd_dkv", dkv_tpu)):
+        rec = t[f"{key}_{dt}"]
+        run = "float32" if dt == "f32" else "bf16"
+        extra = ({"launches_f32_slam": f32_counts["dino_flash_attn_f32"]} if key == "fwd" else {
+            "status": "redesigned",
+            "share_of_bound": rec["share_of_bound"],
+            "backward_both_kernels": t[f"bwd_{dt}"]})
         kernels.append({
             "name": name, "route": "cuda", "source": "cdvslam_tpu_torch/csrc/flash_attn.cu",
-            "replaces": replaces, "launches": runs["f32"]["launches"][src],
-            "max_abs_err": train_rec["max_abs_err"][err], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"], "per": per, "rounds_ms": rec["rounds_ms"],
-            **({"launches_f32_slam": f32_counts["dino_flash_attn_f32"]} if key == "fwd" else {
-                "launches_bf16_run": runs["bf16"]["launches"][src],
-                "bf16": t[f"{key}_bf16"], "max_abs_err_bf16": train_rec["max_abs_err"]["bwd_bf16"],
-                "backward_both_kernels": {"f32": t["bwd_f32"], "bf16": t["bwd_bf16"]}})})
+            "replaces": replaces, "launches": runs[dt]["launches"][src],
+            "max_abs_err": train_rec["max_abs_err"]["f32" if key == "fwd" else f"bwd_{dt}"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "per": per.format(run, "3 sparse + 2 dense steps" if dt == "f32" else "2 sparse steps"),
+            "rounds_ms": rec["rounds_ms"], **extra})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -221,6 +221,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         corr_cuda.corr_pyramid_cl(gmap128, f1, f2, coords, ii, jj)
 
 
+def test_backward_wants_aligned_dout_and_autograd_copies_it(card):
+    # the bf16 kernels read dout by TMA, the float32 ones by 16-byte copies
+    g = torch.Generator(device=card).manual_seed(6)
+    qkv = torch.randn((1, 65, 3 * 384), generator=g, device=card).to(torch.bfloat16)
+    dout = torch.randn((1, 65, 384), generator=g, device=card).to(torch.bfloat16)
+    out, lse = flash_attn._forward(qkv, 6, with_lse=True)
+    odd = dout.new_empty(dout.numel() + 1)[1:].view(dout.shape).copy_(dout)   # 2-byte offset
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attn.flash_attention_qkv_backward(qkv, out, lse, odd, 6)
+    want = flash_attn.flash_attention_qkv_backward(qkv, out, lse, dout, 6)
+    x = qkv.clone().requires_grad_(True)
+    flash_attn.flash_attention_qkv_grad(x, 6).backward(odd)
+    assert torch.equal(x.grad, want)
+
+
 def _global_problem(NF=40, M=16, t0=2):
     """Frames on a forward walk; edges to the 3 frames on either side and
     from frames 0-5 to frames 34-39 (loop pairs); targets from the true
