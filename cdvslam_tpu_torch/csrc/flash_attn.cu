@@ -153,14 +153,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Online softmax of one 64-key tile held in the wgmma accumulator layout:
-// s[4j + e] is row r0 (e < 2) or r0 + 8 (e >= 2), key 8j + 2 (lane % 4) + (e & 1).
-// Updates the running max m and (per-thread partial) sum l, returns the
-// rescale factor of the old O in alpha and P as the bf16 A fragments of the
-// four k16 steps of P V.
-__device__ __forceinline__ void softmax_tile(float (&s)[32], int k0, int L, float scale_log2,
-                                             float (&m)[2], float (&l)[2], float (&alpha)[2],
-                                             uint32_t (&p)[4][4]) {
+// The online-softmax bookkeeping of one 64-key tile held in the wgmma
+// accumulator layout: s[4j + e] is row r0 (e < 2) or r0 + 8 (e >= 2), key
+// 8j + 2 (lane % 4) + (e & 1). Masks keys >= L to -inf, moves the running
+// max m (log2 domain) to the tile's, rescales the (per-thread partial) sum
+// l and returns the rescale factor of the old O in alpha.
+__device__ __forceinline__ void online_max(float (&s)[32], int k0, int L, float scale_log2,
+                                           float (&m)[2], float (&l)[2], float (&alpha)[2]) {
   const int lane = threadIdx.x % 32;
   if (k0 + BK > L) {
 #pragma unroll
@@ -175,22 +174,29 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], int k0, int L, floa
     tmax[0] = fmaxf(tmax[0], fmaxf(s[4 * j], s[4 * j + 1]));
     tmax[1] = fmaxf(tmax[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
   }
-  float mn[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
     tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
-    mn[r] = fmaxf(m[r], tmax[r] * scale_log2);
-    alpha[r] = exp2_approx(m[r] - mn[r]);
-    m[r] = mn[r];
+    const float mn = fmaxf(m[r], tmax[r] * scale_log2);
+    alpha[r] = exp2_approx(m[r] - mn);
+    m[r] = mn;
     l[r] *= alpha[r];
   }
+}
+
+// The online softmax of one tile: online_max, then P as the bf16 A
+// fragments of the four k16 steps of P V.
+__device__ __forceinline__ void softmax_tile(float (&s)[32], int k0, int L, float scale_log2,
+                                             float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                             uint32_t (&p)[4][4]) {
+  online_max(s, k0, L, scale_log2, m, l, alpha);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    const float p0 = exp2_approx(fmaf(s[4 * j], scale_log2, -mn[0]));
-    const float p1 = exp2_approx(fmaf(s[4 * j + 1], scale_log2, -mn[0]));
-    const float p2 = exp2_approx(fmaf(s[4 * j + 2], scale_log2, -mn[1]));
-    const float p3 = exp2_approx(fmaf(s[4 * j + 3], scale_log2, -mn[1]));
+    const float p0 = exp2_approx(fmaf(s[4 * j], scale_log2, -m[0]));
+    const float p1 = exp2_approx(fmaf(s[4 * j + 1], scale_log2, -m[0]));
+    const float p2 = exp2_approx(fmaf(s[4 * j + 2], scale_log2, -m[1]));
+    const float p3 = exp2_approx(fmaf(s[4 * j + 3], scale_log2, -m[1]));
     l[0] += p0 + p1;
     l[1] += p2 + p3;
     p[j / 2][2 * (j % 2)] = pack_bf16(p0, p1);
@@ -411,6 +417,20 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int slot
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the 3-D map {inner, rows, planes} over float32 planes of (rows, inner)
+// floats: boxes of 32 floats (128 bytes) x 64 rows, 128-byte swizzle
+bool encode_f32_map(EncodeTiled encode, CUtensorMap* map, const void* base, int inner, int rows,
+                    int planes) {
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * 4, (cuuint64_t)inner * rows * 4};
+  const cuuint32_t box[3] = {32, 64, 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides,
+                box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ---------------------------------------------------------------------------
 // Training: the float32 forward and the backward (bf16 and float32).
 //
@@ -425,15 +445,41 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int slot
 // and dP once but would have to sum dQ across the CTAs of the key tiles,
 // with atomics (not repeatable) or ordered semaphores, so the split stays.
 //
-// The float32 forward runs on the FP32 pipes (FMA, not TF32: it matches
-// float32 to rounding), the simple tiled design: 64-row query and key tiles
-// in shared memory (rows padded to 65 floats, so that the column reads of a
-// half-warp hit 16 banks), 256 threads each holding a 4 x 4 register block
-// of the 64 x 64 score tile, strided by 16 in both directions, row
-// reductions over the 16 lanes of a half-warp, the online softmax in the
-// log2 domain; it writes O and, when asked, the per-row log-sum-exp
-// LSE = m + log(l). Keys at or past L are masked (the library pads to its
-// block size with segment ids that do the same).
+// The float32 forward runs on the tensor cores in three TF32 passes, as
+// CUTLASS's OpMultiplyAddFastF32 (the float32 path of PyTorch's SDPA) does:
+// each float32 operand x is split into x_hi = tf32(x) and x_lo = tf32(x -
+// x_hi) (cvt.rna, low 13 bits cleared, so wgmma reads both exactly), and
+// each product is x_lo y_hi + x_hi y_lo + x_hi y_hi, summed in float32 by
+// wgmma.m64n64k8.f32.tf32.tf32 (the dropped x_lo y_lo is about 2^-22 of
+// the product, so the result matches float32 to about 1e-6 of its scale;
+// a single TF32 pass keeps about three digits). Two launches per call:
+//  - flash_f32_split, a pre-pass over the packed qkv, writes Q and K split
+//    (hi, lo) and V transposed and split into scratch the wrapper
+//    allocates: V^T because a tf32 B operand must be K-major (no transpose
+//    flag), with each group of 8 keys permuted (slot t holds key 2t, slot
+//    t + 4 key 2t + 1), the order in which the S accumulator fragment holds
+//    a thread's keys, so that P is the A operand of P V straight from
+//    registers, with no shuffle. Done once per call here, not once per
+//    query tile (26 times at L 1,611) in every CTA.
+//  - flash_f32_kernel: one CTA per (128-query tile, head, batch): two
+//    consumer warpgroups of 64 query rows share each key tile, and one
+//    thread of a producer warpgroup (which hands its registers to the
+//    consumers by setmaxnreg) keeps two rings by TMA, K (hi, lo) and V^T
+//    (hi, lo), two stages each, with full and empty mbarriers (128-byte
+//    swizzle; a 16 KB tile is two boxes of 32 floats). K runs one tile
+//    ahead of V, because each warpgroup queues P V of tile t and S of tile
+//    t + 1 together (the softmax of one warpgroup runs under the other's
+//    products). S = Q K^T is 24 wgmma with both operands K-major in shared
+//    memory; the online softmax runs on the fragment in the log2 domain
+//    (keys >= L masked: their zero rows give S = 0, not -inf); P is split
+//    in registers; O += P V is 24 wgmma with P as the register A operand,
+//    into an accumulator of its own, and O = O alpha + (P V) runs in
+//    float32 on the fragment: the tensor cores round their sums toward
+//    zero, and one accumulator over all key tiles put O 1.2e-5 of max |O|
+//    from float64 at L 1,891, leaning toward zero by as much
+//    (kernel_ab.py flash_attn_f32; NVIDIA H100 80GB HBM3, 700 W). Query
+//    rows past L are never written. 192 KB of shared memory: one CTA per
+//    SM.
 //
 // Both backward kernels, in both types: dQ runs one CTA per (query tile,
 // head, batch) and loops over the key tiles; its prologue computes
@@ -486,119 +532,400 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int slot
 // ---------------------------------------------------------------------------
 
 constexpr int FT = 64;          // rows per tile
-constexpr int LD = FT + 1;      // padded shared-memory row of the forward, in floats
-constexpr int FTHREADS = 256;   // float32 kernels
+constexpr int FTHREADS = 256;   // float32 backward kernels and the pre-pass
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// rows row0..row0+63 of a (L, 64)-row float view with `stride` floats
-// between rows into s (64 x LD floats); rows at or past L read zero
-__device__ __forceinline__ void load_tile(float* s, const float* __restrict__ src, size_t stride,
-                                          int row0, int L) {
-  for (int i = threadIdx.x; i < FT * HD; i += FTHREADS) {
-    const int r = i >> 6, d = i & 63, row = row0 + r;
-    s[r * LD + d] = row < L ? src[static_cast<size_t>(row) * stride + d] : 0.f;
-  }
+// ---- float32 forward: three TF32 passes on wgmma ----------------------------
+
+// The scratch of one call, Lp = L rounded up to F_ROWS (rows past L zero):
+// qk holds the planes [Q hi, Q lo, K hi, K lo] x [B H] of (Lp, 64) floats,
+// vt the planes [V^T hi, V^T lo] x [B H] of (64, Lp) floats.
+constexpr int F_ROWS = 2 * BQ;                  // query rows per CTA: two warpgroups
+constexpr int F_STAGES = 2;                     // depth of the K ring and of the V ring
+constexpr int F_THREADS = 3 * THREADS;          // + the producer warpgroup
+constexpr uint32_t F_TILE = FT * HD * 4;        // 16 KB: two 8 KB halves of 32 floats a row
+constexpr uint32_t F_HALF = F_TILE / 2;
+constexpr uint32_t F_OFF_K = 4 * F_TILE;        // after Q hi, Q lo of each warpgroup
+constexpr uint32_t F_OFF_V = F_OFF_K + 2 * F_STAGES * F_TILE;
+constexpr uint32_t F_OFF_BAR = F_OFF_V + 2 * F_STAGES * F_TILE;
+constexpr uint32_t F_SMEM = F_OFF_BAR + 8 * (1 + 4 * F_STAGES) + 1024;   // + alignment slack
+
+// x rounded to TF32 (10 mantissa bits, ties away from zero), the 13 bits
+// TF32 ignores cleared, so that wgmma reads exactly this value
+__device__ __forceinline__ float tf32_round(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return __uint_as_float(y & 0xFFFFE000u);
 }
 
-// sum over the 16 lanes of a half-warp
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// x ~ hi + lo with both TF32 values (x - hi is exact in float32)
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(x - hi);
 }
 
+// the key that slot c of a V^T row holds: in each group of 8, slot t holds
+// key 2t and slot t + 4 key 2t + 1
+__device__ __forceinline__ int slot_key(int c) {
+  const int e = c & 7;
+  return (c & ~7) + (e < 4 ? 2 * e : 2 * e - 7);
+}
+
+// The pre-pass: rows r0..r0+63 of one (batch, head) of the packed qkv into
+// the scratch planes (Q and K split; V transposed, permuted and split).
 __global__ void __launch_bounds__(FTHREADS)
-flash_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
-                 float* __restrict__ lse, int L, int H, float scale) {
-  extern __shared__ float fsm[];
-  float* sQ = fsm;
-  float* sK = sQ + FT * LD;
-  float* sV = sK + FT * LD;
-  float* sP = sV + FT * LD;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * FT, h = blockIdx.y, b = blockIdx.z;
-  const size_t rs = static_cast<size_t>(3) * H * HD;
-  const float* base = qkv + static_cast<size_t>(b) * L * rs;
-  const float sl2 = scale * LOG2E;
-  load_tile(sQ, base + h * HD, rs, q0, L);
-
-  float o[4][4], m[4], l[4];
+flash_f32_split(const float* __restrict__ qkv, float* __restrict__ qk, float* __restrict__ vt,
+                int L, int H, int Lp) {
+  __shared__ float sv[FT][HD + 1];
+  const int r0 = blockIdx.x * FT, bh = blockIdx.y, BH = gridDim.y;
+  const int b = bh / H, h = bh % H;
+  const size_t rs = static_cast<size_t>(3) * H * HD, plane = static_cast<size_t>(Lp) * HD;
+  const float* src = qkv + static_cast<size_t>(b) * L * rs + h * HD;
+  for (int i = threadIdx.x; i < FT * HD / 4; i += FTHREADS) {
+    const int r = i >> 4, c = 4 * (i & 15), row = r0 + r;
+    float4 x[3];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -CUDART_INF_F;
-    l[i] = 0.f;
+    for (int p = 0; p < 3; ++p)
+      x[p] = row < L ? *reinterpret_cast<const float4*>(src + row * rs + p * H * HD + c)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    const size_t off = static_cast<size_t>(row) * HD + c;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-  }
-  for (int k0 = 0; k0 < L; k0 += FT) {
-    __syncthreads();   // the last tile's K, V and P are read
-    load_tile(sK, base + (H + h) * HD, rs, k0, L);
-    load_tile(sV, base + (2 * H + h) * HD, rs, k0, L);
-    __syncthreads();
-    float s[4][4] = {};
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = sK[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+    for (int p = 0; p < 2; ++p) {
+      float4 hi, lo;
+      split_tf32(x[p].x, hi.x, lo.x);
+      split_tf32(x[p].y, hi.y, lo.y);
+      split_tf32(x[p].z, hi.z, lo.z);
+      split_tf32(x[p].w, hi.w, lo.w);
+      *reinterpret_cast<float4*>(qk + (2 * p * BH + bh) * plane + off) = hi;
+      *reinterpret_cast<float4*>(qk + ((2 * p + 1) * BH + bh) * plane + off) = lo;
     }
+    sv[r][c] = x[2].x;
+    sv[r][c + 1] = x[2].y;
+    sv[r][c + 2] = x[2].z;
+    sv[r][c + 3] = x[2].w;
+  }
+  __syncthreads();
+  // V^T: a warp writes 32 consecutive slots of one head dim n
+  for (int i = threadIdx.x; i < FT * HD; i += FTHREADS) {
+    const int n = i >> 6, c = i & 63;
+    float hi, lo;
+    split_tf32(sv[slot_key(c)][n], hi, lo);
+    const size_t off = static_cast<size_t>(n) * Lp + r0 + c;
+    vt[bh * plane + off] = hi;
+    vt[(BH + bh) * plane + off] = lo;
+  }
+}
+
+__device__ __forceinline__ void mbar_init_count(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// the registers of each thread of this warpgroup, from here on: the
+// producer gives up what the consumers take (40 x 128 + 232 x 256 fit the
+// SM's 65,536 as 384 threads at 168 registers do)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// one 16 KB tile of a 3-D float32 map as its two boxes of 32 floats x 64
+// rows, at {inner0, row0, plane} and {inner0 + 32, row0, plane}
+__device__ __forceinline__ void tma_tile_f32(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                             int inner0, int row0, int plane) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (k0 + tx + 16 * j >= L)
+  for (int half = 0; half < 2; ++half)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst + half * F_HALF),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(inner0 + 32 * half), "r"(row0),
+        "r"(plane)
+        : "memory");
+}
+
+// d (64x64 f32) += A (64x8 tf32, smem, K-major) * B (8x64 tf32, smem, K-major)
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile("{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " R32
+               ", %32, %33, p, 1, 1;\n}\n"
+               : D32(d)
+               : "l"(a), "l"(b));
+}
+
+// d (64x64 f32) += A (64x8 tf32, registers) * B (8x64 tf32, smem, K-major)
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile("{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " R32
+               ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+               : D32(d)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// descriptor offset (16-byte units) of k8 step kk in a tile of two halves
+__device__ __forceinline__ uint64_t kstep(int kk) {
+  return ((kk >> 2) * F_HALF + 32 * (kk & 3)) >> 4;
+}
+
+// The three passes of a product, smallest first: every lo hi, then every
+// hi lo, then every hi hi k8 step. The tensor cores round each sum toward
+// zero at the scale of its largest term, so the small passes are summed
+// while the accumulator is still small, and only the eight hi hi steps
+// round at the full scale. At L 1,891, O is within 9.7e-7 of max |O| from
+// float64 and leans toward zero by 3.1e-7 of the mean |O|; interleaved
+// per k8 step (all 24 steps rounding at the full scale), 2.4e-6 and
+// 7.6e-7 (kernel_ab.py flash_attn_f32; NVIDIA H100 80GB HBM3, 700 W).
+
+// s += Q K^T over the 64 head dims; the descriptors are of the tiles' bases
+__device__ __forceinline__ void wgmma_s_tf32(float (&s)[32], uint64_t qh, uint64_t ql, uint64_t kh,
+                                             uint64_t kl) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][j] = -CUDART_INF_F;
+  for (int kk = 0; kk < HD / 8; ++kk) wgmma_tf32_ss(s, ql + kstep(kk), kh + kstep(kk));
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) wgmma_tf32_ss(s, qh + kstep(kk), kl + kstep(kk));
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) wgmma_tf32_ss(s, qh + kstep(kk), kh + kstep(kk));
+}
+
+// o += P V over the 64 keys of a tile: P (hi, lo) the register A operand of
+// each k8 step, V^T (hi, lo) K-major
+__device__ __forceinline__ void wgmma_pv_tf32(float (&o)[32], const uint32_t (&ph)[8][4],
+                                              const uint32_t (&pl)[8][4], uint64_t vh,
+                                              uint64_t vl) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) wgmma_tf32_rs(o, pl[j], vh + kstep(j));
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) wgmma_tf32_rs(o, ph[j], vl + kstep(j));
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) wgmma_tf32_rs(o, ph[j], vh + kstep(j));
+}
+
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
+}
+
+// The softmax of one tile (online_max, then P) with P split into the TF32
+// A fragments of the eight k8 steps of P V. Step j holds (row g, slot t),
+// (g + 8, t), (g, t + 4), (g + 8, t + 4): by the slot order of V^T the keys
+// 8j + 2t, 2t, 2t + 1, 2t + 1, i.e. the accumulator's s[4j], s[4j + 2],
+// s[4j + 1], s[4j + 3].
+__device__ __forceinline__ void softmax_tf32(float (&s)[32], int k0, int L, float scale_log2,
+                                             float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                             uint32_t (&ph)[8][4], uint32_t (&pl)[8][4]) {
+  online_max(s, k0, L, scale_log2, m, l, alpha);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float p[4] = {exp2_approx(fmaf(s[4 * j], scale_log2, -m[0])),
+                        exp2_approx(fmaf(s[4 * j + 2], scale_log2, -m[1])),
+                        exp2_approx(fmaf(s[4 * j + 1], scale_log2, -m[0])),
+                        exp2_approx(fmaf(s[4 * j + 3], scale_log2, -m[1]))};
+    l[0] += p[0] + p[2];
+    l[1] += p[1] + p[3];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-      const float mn = fmaxf(m[i], half_warp_max(mx) * sl2);
-      const float alpha = exp2f(m[i] - mn);
-      m[i] = mn;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f(fmaf(s[i][j], sl2, -mn));
-        sum += p;
-        sP[(ty + 16 * i) * LD + tx + 16 * j] = p;
-        o[i][j] *= alpha;
-      }
-      l[i] = fmaf(l[i], alpha, sum);   // this thread's share of the row sum
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < FT; ++c) {
-      float p[4], v[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sP[(ty + 16 * i) * LD + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = sV[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = fmaf(p[i], v[j], o[i][j]);
+      float hi, lo;
+      split_tf32(p[i], hi, lo);
+      ph[j][i] = __float_as_uint(hi);
+      pl[j][i] = __float_as_uint(lo);
     }
   }
+}
+
+// o = o alpha + ot, in float32 on the fragment: the tensor cores sum each
+// tile's P V alone (their accumulation rounds toward zero, which over all
+// of L's key tiles drifts past 1e-5 of |O|)
+__device__ __forceinline__ void rescale_add(float (&o)[32], const float (&alpha)[2],
+                                            const float (&ot)[32]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float li = half_warp_sum(l[i]);
-    const int row = q0 + ty + 16 * i;
+  for (int j = 0; j < 8; ++j) {
+    o[4 * j] = fmaf(o[4 * j], alpha[0], ot[4 * j]);
+    o[4 * j + 1] = fmaf(o[4 * j + 1], alpha[0], ot[4 * j + 1]);
+    o[4 * j + 2] = fmaf(o[4 * j + 2], alpha[1], ot[4 * j + 2]);
+    o[4 * j + 3] = fmaf(o[4 * j + 3], alpha[1], ot[4 * j + 3]);
+  }
+}
+
+__global__ void __launch_bounds__(F_THREADS, 1)
+flash_f32_kernel(const __grid_constant__ CUtensorMap qk, const __grid_constant__ CUtensorMap vt,
+                 float* __restrict__ out, float* __restrict__ lse, int L, int H,
+                 float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = base + F_OFF_K, sV = base + F_OFF_V;   // stage s: hi at 2s, lo at 2s + 1
+  const uint32_t barQ = base + F_OFF_BAR;
+  const uint32_t fullK = barQ + 8, emptyK = fullK + 8 * F_STAGES;
+  const uint32_t fullV = emptyK + 8 * F_STAGES, emptyV = fullV + 8 * F_STAGES;
+  const int tid = threadIdx.x, wg = tid / THREADS;
+  const int q0 = blockIdx.x * F_ROWS, head = blockIdx.y, b = blockIdx.z;
+  const int BH = gridDim.y * gridDim.z, bh = b * gridDim.y + head;
+  const int nt = (L + BK - 1) / BK;
+  if (tid == 0) {
+    mbar_init(barQ);
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(fullK + 8 * s);
+      mbar_init(fullV + 8 * s);
+      mbar_init_count(emptyK + 8 * s, 8);   // one arrival per consumer warp
+      mbar_init_count(emptyV + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // the producer: Q, then K(j) and V(j - 1) in turn, each into its ring
+    // once both warpgroups are done with the tile two before it
+    setmaxnreg_dec<40>();
+    if (tid == 2 * THREADS) {
+      mbar_expect_tx(barQ, 4 * F_TILE);
+      for (int w = 0; w < 2; ++w)
+        for (int part = 0; part < 2; ++part)
+          tma_tile_f32(base + (2 * w + part) * F_TILE, &qk, barQ, 0, q0 + BQ * w,
+                       part * BH + bh);
+      for (int j = 0; j <= nt; ++j) {
+        if (j < nt) {
+          const int st = j % F_STAGES;
+          if (j >= F_STAGES) mbar_wait(emptyK + 8 * st, (j / F_STAGES - 1) & 1);
+          mbar_expect_tx(fullK + 8 * st, 2 * F_TILE);
+          tma_tile_f32(sK + 2 * st * F_TILE, &qk, fullK + 8 * st, 0, j * BK, 2 * BH + bh);
+          tma_tile_f32(sK + (2 * st + 1) * F_TILE, &qk, fullK + 8 * st, 0, j * BK,
+                       3 * BH + bh);
+        }
+        if (j >= 1) {
+          const int v = j - 1, st = v % F_STAGES;
+          if (v >= F_STAGES) mbar_wait(emptyV + 8 * st, (v / F_STAGES - 1) & 1);
+          mbar_expect_tx(fullV + 8 * st, 2 * F_TILE);
+          tma_tile_f32(sV + 2 * st * F_TILE, &vt, fullV + 8 * st, v * BK, 0, bh);
+          tma_tile_f32(sV + (2 * st + 1) * F_TILE, &vt, fullV + 8 * st, v * BK, 0, BH + bh);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<232>();
+
+  const int warp = (tid % THREADS) / 32, lane = tid % 32;
+  float o[32], ot[32], s[32];   // O, this tile's P V, S
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f}, alpha[2];
+  uint32_t ph[8][4], pl[8][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  uint64_t dqh = desc_b128(base + 2 * wg * F_TILE, 16, 1024);
+  uint64_t dql = desc_b128(base + (2 * wg + 1) * F_TILE, 16, 1024);
+  // the hi (part 0) or lo (part 1) tile of K(t) or V(t)
+  auto dk = [&](int t, int part) {
+    return desc_b128(sK + (2 * (t % F_STAGES) + part) * F_TILE, 16, 1024);
+  };
+  auto dv = [&](int t, int part) {
+    return desc_b128(sV + (2 * (t % F_STAGES) + part) * F_TILE, 16, 1024);
+  };
+  // lane 0 of each consumer warp frees a stage once its warpgroup's
+  // products on it are complete
+  auto release = [&](uint32_t bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  mbar_wait(barQ, 0);
+  mbar_wait(fullK, 0);
+  {
+    uint64_t kh = dk(0, 0), kl = dk(0, 1);
+    asm volatile("" : "+l"(dqh), "+l"(dql), "+l"(kh), "+l"(kl));
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    reg_fence(s);
+    wg_fence();
+    wgmma_s_tf32(s, dqh, dql, kh, kl);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(s);
+  }
+  release(emptyK);
+
+  // Tile t: the softmax of S(t), then P V of tile t (into ot) and S of
+  // tile t + 1 in one batch; no wgmma is in flight across a loop iteration
+  for (int t = 0; t < nt - 1; ++t) {
+    softmax_tf32(s, t * BK, L, scale_log2, m, l, alpha, ph, pl);
+    mbar_wait(fullV + 8 * (t % F_STAGES), (t / F_STAGES) & 1);
+    mbar_wait(fullK + 8 * ((t + 1) % F_STAGES), ((t + 1) / F_STAGES) & 1);
+    uint64_t vh = dv(t, 0), vl = dv(t, 1), kh = dk(t + 1, 0), kl = dk(t + 1, 1);
+    asm volatile("" : "+l"(vh), "+l"(vl), "+l"(kh), "+l"(kl), "+l"(dqh), "+l"(dql));
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      ot[i] = 0.f;
+      s[i] = 0.f;
+    }
+    reg_fence(ot);
+    reg_fence(s);
+    reg_fence(ph);
+    reg_fence(pl);
+    wg_fence();
+    wgmma_pv_tf32(ot, ph, pl, vh, vl);
+    wg_commit();
+    wgmma_s_tf32(s, dqh, dql, kh, kl);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(ot);
+    reg_fence(s);
+    reg_fence(ph);
+    reg_fence(pl);
+    release(emptyV + 8 * (t % F_STAGES));
+    release(emptyK + 8 * ((t + 1) % F_STAGES));
+    rescale_add(o, alpha, ot);
+  }
+  {
+    const int t = nt - 1;
+    softmax_tf32(s, t * BK, L, scale_log2, m, l, alpha, ph, pl);
+    mbar_wait(fullV + 8 * (t % F_STAGES), (t / F_STAGES) & 1);
+    uint64_t vh = dv(t, 0), vl = dv(t, 1);
+    asm volatile("" : "+l"(vh), "+l"(vl));
+#pragma unroll
+    for (int i = 0; i < 32; ++i) ot[i] = 0.f;
+    reg_fence(ot);
+    reg_fence(ph);
+    reg_fence(pl);
+    wg_fence();
+    wgmma_pv_tf32(ot, ph, pl, vh, vl);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(ot);
+    rescale_add(o, alpha, ot);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / l[r];
+  }
+  const int row0 = q0 + BQ * wg + warp * 16 + lane / 4;
+  const size_t C = static_cast<size_t>(H) * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
     if (row >= L) continue;
-    float* dst = out + (static_cast<size_t>(b) * L + row) * H * HD + h * HD;
+    float* dst = out + (static_cast<size_t>(b) * L + row) * C + head * HD + 2 * (lane % 4);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dst[tx + 16 * j] = o[i][j] / li;
-    if (lse != nullptr && tx == 0)
-      lse[(static_cast<size_t>(b) * H + h) * L + row] = (m[i] + log2f(li)) * LN2;
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+  }
+  // one thread of the quad writes each row's log-sum-exp
+  if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < L)
+        lse[(static_cast<size_t>(b) * H + head) * L + row] = (m[r] + log2f(l[r])) * LN2;
+    }
   }
 }
 
@@ -1234,7 +1561,6 @@ flash_bwd_dkv_f32(const float* __restrict__ qkv, const float* __restrict__ dout,
   }
 }
 
-constexpr int F32_SMEM = 4 * FT * LD * 4;
 constexpr int DQ_F32_SMEM = (5 * FTILE + 2 * FT) * 4;
 constexpr int DKV_F32_SMEM = (6 * FTILE + 2 * FT) * 4;
 
@@ -1294,17 +1620,32 @@ extern "C" int flash_attn_qkv_forward_lse(const void* qkv, void* out, void* lse,
   return launch_bf16(qkv, out, static_cast<float*>(lse), B, L, H, scale, stream);
 }
 
-// float32; lse may be null
-extern "C" int flash_attn_qkv_forward_f32(const void* qkv, void* out, void* lse, int B, int L,
-                                          int H, float scale, void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, F32_SMEM);
+// rows of each scratch plane of the float32 forward: L rounded up to 128
+extern "C" int flash_attn_f32_rows(int L) { return (L + F_ROWS - 1) / F_ROWS * F_ROWS; }
+
+// float32, three TF32 passes; lse may be null; ws: scratch of
+// 6 B H flash_attn_f32_rows(L) 64 floats, 16-byte aligned
+extern "C" int flash_attn_qkv_forward_f32(const void* qkv, void* out, void* lse, void* ws, int B,
+                                          int L, int H, float scale, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || ws == nullptr) return (int)cudaErrorInvalidValue;
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const int Lp = flash_attn_f32_rows(L), BH = B * H;
+  float* qk = static_cast<float*>(ws);
+  float* vt = qk + static_cast<size_t>(4) * BH * Lp * HD;
+  CUtensorMap mqk, mvt;
+  if (!encode_f32_map(encode, &mqk, qk, HD, Lp, 4 * BH) ||
+      !encode_f32_map(encode, &mvt, vt, Lp, HD, 2 * BH))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare(flash_f32_kernel, (int)F_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + FT - 1) / FT, H, B);
-  flash_f32_kernel<<<grid, FTHREADS, F32_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(qkv), static_cast<float*>(out), static_cast<float*>(lse), L, H,
-      scale);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  flash_f32_split<<<dim3(Lp / FT, BH), FTHREADS, 0, s>>>(static_cast<const float*>(qkv), qk, vt,
+                                                         L, H, Lp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_f32_kernel<<<dim3(Lp / F_ROWS, H, B), F_THREADS, F_SMEM, s>>>(
+      mqk, mvt, static_cast<float*>(out), static_cast<float*>(lse), L, H, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,8 @@ head, reading q, k and v from the packed ``qkv`` projection (B, L, 3 C),
 laid out (B, L, 3, heads, d), and returns (B, L, C). On CPU tensors it
 returns ``attention_qkv_plain`` (the JAX package's einsum branch,
 ``cdvslam_tpu/models/dinov2.py`` Attention); on CUDA tensors it launches
-the kernel for qkv's type (bf16: the wgmma kernel; float32: the FP32 FMA
-kernel) or raises.
+the kernel for qkv's type (bf16: the wgmma kernel; float32: three TF32
+passes on wgmma, after a pre-pass that splits q, k and v) or raises.
 
 ``flash_attention_qkv_grad(qkv, heads)`` is the same function under
 autograd: on the card a ``torch.autograd.Function`` whose forward launches
@@ -100,9 +100,12 @@ def _forward(qkv, heads: int, with_lse: bool):
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     scale = float(64 ** -0.5)
     if qkv.dtype == torch.float32:
+        # the pre-pass's scratch: Q, K and V^T split into TF32 hi and lo parts
+        rows = lib.flash_attn_f32_rows(L)
+        ws = torch.empty(6 * B * heads * rows * 64, dtype=torch.float32, device=qkv.device)
         err = lib.flash_attn_qkv_forward_f32(
             qkv.data_ptr(), out.data_ptr(), lse.data_ptr() if with_lse else None,
-            B, L, heads, scale, stream)
+            ws.data_ptr(), B, L, heads, scale, stream)
         native.check(err, "flash_attn_qkv_forward_f32")
         LAUNCHES_F32.count += 1
     elif with_lse:

@@ -7,9 +7,9 @@
 Phases, each printing one JSON line; any failure exits non-zero:
   0  the card (nvidia-smi), torch and CUDA versions; builds both kernels
      with nvcc for sm_90a and prints the build time, ptxas's register and
-     spill lines, and the HGMMA instructions of each bf16 K2 kernel in the
-     built library (cuobjdump -sass): fails if either bf16 backward kernel
-     has none
+     spill lines, and the HGMMA instructions of each bf16 K2 kernel and of
+     the float32 forward in the built library (cuobjdump -sass): fails if
+     either bf16 backward kernel or the float32 forward has none
   1  corr kernel (K1, both pyramid levels in one launch) against its plain
      version at the main-path shapes (E = 9600; level 2 at coords / 4) on
      the phase-1 draw, centers past every border, near-rigid patches and
@@ -25,10 +25,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
      phase 2's rule and its log-sum-exp within 1e-3, the backward kernels
      within 1e-4 (float32) and 1e-2 (bf16) of max |plain| (the plain
      backward from the plain output and log-sum-exp) and bitwise
-     repeatable, at L in {1, 63, 65, 1000, 1891} (B 1) and the sparse
-     training shape (B 15, L 1611); then times at the training shape against
-     the plain versions, SDPA's forward and backward, and the bounds, each
-     backward kernel's and both together's ("2-train-times")
+     repeatable, the float32 forward's call with the log-sum-exp bitwise
+     equal to its call without and to a second call, at L in {1, 7, 9, 63,
+     65, 127, 129, 1000, 1891} (B 1) and the sparse training shape (B 15,
+     L 1611); then times at the training shape against the plain versions,
+     SDPA's forward and backward, and the bounds, each backward kernel's
+     and both together's, and the float32 forward at the SLAM shape (B 1,
+     L 1891) against SDPA's float32 forward ("2-train-times"). Float32
+     bounds: three TF32 passes on the tensor cores, the FP32-FMA figure
+     beside it
   3  bundle adjustment run twice at E = 9600, K = 2688: bitwise equal
   4  the main path: SLAM(get_cfg(), "cdv", 480, 752) with seeded random
      weights and 8 seeded random frames cycled, 60 warm-up frames, one
@@ -89,8 +94,10 @@ launches_loop_path, launches_cdvo_pp_path and launches_dpvo_path; the
 float32 forward and the two backward kernels of K2 have records of their
 own, timed at the training shape, with phase 9's launches, and the bf16
 backward kernels (wgmma kernels apart from the float32 ones) records of
-their own with the launches of phase 9's bf16 run; the four backward
-records carry the times of the simple FP32-FMA kernels they replaced),
+their own with the launches of phase 9's bf16 run; the float32 records
+take three TF32 passes as bound_ms and give the FP32-FMA figure as
+bound_fma_ms; the float32 forward's record names its pre-pass and adds
+its SLAM-shape times as ms_slam and friends),
 the nvidia-smi line, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -120,6 +127,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 BF16_FLOPS = 989e12           # dense bf16 tensor cores
 F32_FLOPS = 67e12             # float32 outside the tensor cores
+TF32_FLOPS = 495e12           # dense TF32 tensor cores: a float32-accurate product is three passes
 
 # main-path shapes at 480 x 752 (BUFFER ring of 36 frames, 96 patches)
 K_CORR, C, NF, E = 36 * 96, 24, 36, 9600
@@ -165,6 +173,7 @@ def _hgmma_counts(lib):
 
 
 BF16_K2 = ("flash_qkv_kernel", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
+F32_K2 = ("flash_f32_kernel",)   # the float32 forward: three TF32 passes on wgmma
 
 
 def phase0():
@@ -181,7 +190,7 @@ def phase0():
                   or "entry function" in ln]
             for name, b in builds.items()}
     per_fn = _hgmma_counts(native.lib_path("flash_attn"))
-    hgmma = {k: sum(n for fn, n in per_fn.items() if k in fn) for k in BF16_K2}
+    hgmma = {k: sum(n for fn, n in per_fn.items() if k in fn) for k in BF16_K2 + F32_K2}
     emit({"phase": 0, "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "build_wall_s": round(wall, 3),
@@ -189,6 +198,8 @@ def phase0():
           "ptxas": regs, "hgmma": hgmma})
     if not (hgmma["flash_bwd_dq_bf16"] and hgmma["flash_bwd_dkv_bf16"]):
         raise SystemExit(f"phase 0: a bf16 backward kernel has no HGMMA: {hgmma}")
+    if not all(hgmma[k] for k in F32_K2):
+        raise SystemExit(f"phase 0: the float32 forward has no HGMMA: {hgmma}")
     return smi
 
 
@@ -400,10 +411,12 @@ def phase2_train():
     """K2 for training: the float32 forward (output and log-sum-exp) and
     the backward kernels in float32 and bf16 against their plain versions
     at the SLAM shape (B 1, L 1891), the training shape (B 15, L 1611) and
-    odd L; two backward calls bitwise equal; then times at the training
-    shape against the plain versions, SDPA's forward and its backward, and
-    the roofline bounds. Tolerances: f32 forward output and log-sum-exp
-    1e-5 and f32 backward 1e-4 of max |plain|; the bf16 forward with the
+    odd L; two backward calls bitwise equal, and the float32 forward with
+    the log-sum-exp bitwise equal to the call without it and to a second
+    call; then times at the training shape against the plain versions,
+    SDPA's forward and its backward, and the roofline bounds, and the
+    float32 forward at the SLAM shape. Tolerances: f32 forward output and
+    log-sum-exp 1e-5 and f32 backward 1e-4 of max |plain|; the bf16 forward with the
     log-sum-exp as phase 2 holds the serving call (2e-2 max abs, 1e-2
     relative Frobenius, against the plain version in bf16) and its
     log-sum-exp 1e-3 of max |plain|; bf16 backward 1e-2 of max |plain|.
@@ -423,7 +436,8 @@ def phase2_train():
             worst[key] = max(worst[key], err)
         return err / b.float().abs().max().item()
 
-    for B, L in ((1, 1), (1, 63), (1, 65), (1, 1000), (1, 1891), TRAIN_SHAPE[::2]):
+    for B, L in ((1, 1), (1, 7), (1, 9), (1, 63), (1, 65), (1, 127), (1, 129), (1, 1000),
+                 (1, 1891), TRAIN_SHAPE[::2]):
         qkv = torch.randn((B, L, 1152), generator=gen, device="cuda")
         dout = torch.randn((B, L, 384), generator=gen, device="cuda")
         rec, good = {}, True
@@ -434,8 +448,11 @@ def phase2_train():
             r_lse = rel(lse, p_lse, "bf16_lse" if name == "bf16" else None)
             if name == "f32":
                 r_out = rel(o, p_out, "f32")
-                rec.update(fwd_f32_rel=r_out, lse_f32_rel=r_lse)
-                good = good and r_out <= 1e-5 and r_lse <= 1e-5
+                o2, lse2 = fa._forward(x, 6, with_lse=True)
+                same = (torch.equal(fa._forward(x, 6, with_lse=False)[0], o)
+                        and torch.equal(o2, o) and torch.equal(lse2, lse))
+                rec.update(fwd_f32_rel=r_out, lse_f32_rel=r_lse, fwd_f32_bitwise=same)
+                good = good and r_out <= 1e-5 and r_lse <= 1e-5 and same
             else:
                 want = fa.attention_qkv_plain(x, 6).float()
                 max_abs = (o.float() - want).abs().max().item()
@@ -462,7 +479,9 @@ def phase2_train():
     B, h, L, d = TRAIN_SHAPE
     flops = _attn_flops(B, L)
     times = {}
-    for dtype, name, peak in ((torch.float32, "f32", F32_FLOPS), (torch.bfloat16, "bf16", BF16_FLOPS)):
+    # a float32-accurate product is three TF32 passes on the tensor cores
+    for dtype, name, peak in ((torch.float32, "f32", TF32_FLOPS / 3),
+                              (torch.bfloat16, "bf16", BF16_FLOPS)):
         es = 4 if dtype == torch.float32 else 2
         qkv = torch.randn((B, L, 1152), generator=gen, device="cuda").to(dtype)
         dout = torch.randn((B, L, 384), generator=gen, device="cuda").to(dtype)
@@ -505,6 +524,9 @@ def phase2_train():
                 "share_of_bound": max(ops_ms, bytes_ms) / med[key],
                 "plain_ms": med["plain_fwd"] if key == "fwd" else med["plain_bwd"],
                 "library_ms": med["sdpa_fwd"] if key == "fwd" else med["sdpa_bwd"]}
+            if name == "f32":   # the FP32 FMA pipes' figure beside it
+                times[f"{key}_{name}"].update(bound_fma_ms=ops / F32_FLOPS * 1e3,
+                                              share_of_fma_bound=ops / F32_FLOPS * 1e3 / med[key])
         # the backward as one function: 10 L^2 d h; the split design
         # recomputes S and dP in both kernels (4 L^2 d h more)
         ops_ms = 2.5 * flops / peak * 1e3
@@ -515,14 +537,46 @@ def phase2_train():
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "share_of_bound": max(ops_ms, bytes_ms) / bwd_ms,
             "plain_ms": med["plain_bwd"], "library_ms": med["sdpa_bwd"]}
+        if name == "f32":
+            times[f"bwd_{name}"]["bound_fma_ms"] = 2.5 * flops / F32_FLOPS * 1e3
         times[f"sdpa_fwd_bwd_{name}_ms"] = med["sdpa_fwd"] + med["sdpa_bwd"]
         del qkv, dout, o, lse, D, dqkv, q, k, v, sd_out
         torch.cuda.empty_cache()
+    times["fwd_f32_slam"] = _f32_forward_slam_times(gen)
     emit({"phase": "2-train-times", "shape": {"B": B, "heads": h, "L": L, "d": d},
           "per": "one call; ms medians of 5 alternating rounds of 3 calls; plain_ms of the "
                  "backward is the formula (both kernels' work); library_ms: SDPA forward, or "
                  "SDPA backward (dq, dk and dv together)", **times})
     return {"max_abs_err": worst, "times": times}
+
+
+def _f32_forward_slam_times(gen):
+    """The float32 forward with the log-sum-exp at the SLAM shape against
+    SDPA's float32 forward, 5 alternating rounds of 20 calls (medians), with
+    both bounds: three TF32 passes (bound_ms) and the FP32 FMA pipes."""
+    import torch
+    import torch.nn.functional as F
+    from cdvslam_tpu_torch.ops import flash_attn as fa
+    B, h, L, d = ATTN_SHAPE
+    qkv = torch.randn((B, L, 3 * h * d), generator=gen, device="cuda")
+    q, k, v = qkv.reshape(B, L, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    fns = {"fwd": lambda: fa._forward(qkv, h, with_lse=True),
+           "sdpa": lambda: F.scaled_dot_product_attention(q, k, v)}
+    rounds = {key: [] for key in fns}
+    for i in range(5):
+        for key in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+            rounds[key].append(cuda_time(fns[key], 20))
+    ms = statistics.median(rounds["fwd"])
+    ops = _attn_flops(B, L, h, d)
+    ops_ms, fma_ms = 3 * ops / TF32_FLOPS * 1e3, ops / F32_FLOPS * 1e3
+    bytes_ms = (4 * B * L * h * d * 4 + B * h * L * 4) / HBM_BYTES_PER_S * 1e3
+    return {"shape": {"B": B, "heads": h, "L": L, "d": d}, "ms": ms, "rounds_ms": rounds["fwd"],
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "share_of_bound": max(ops_ms, bytes_ms) / ms,
+            "bound_fma_ms": fma_ms, "share_of_fma_bound": fma_ms / ms,
+            "plain_ms": cuda_time(lambda: fa.attention_qkv_plain(qkv, h), 5),
+            "library_ms": statistics.median(rounds["sdpa"]), "library_rounds_ms": rounds["sdpa"]}
 
 
 def _ba_window(gen, NFw=28, M=96):
@@ -1643,10 +1697,23 @@ def main():
             ("dino_flash_attn_bwd_dkv_bf16", "dkv", "bf16", "bwd_dkv", dkv_tpu)):
         rec = t[f"{key}_{dt}"]
         run = "float32" if dt == "f32" else "bf16"
-        extra = ({"launches_f32_slam": f32_counts["dino_flash_attn_f32"]} if key == "fwd" else {
-            "status": "redesigned",
-            "share_of_bound": rec["share_of_bound"],
-            "backward_both_kernels": t[f"bwd_{dt}"]})
+        extra = {"status": "redesigned", "share_of_bound": rec["share_of_bound"]}
+        if dt == "f32":
+            extra.update(bound_fma_ms=rec["bound_fma_ms"],
+                         share_of_fma_bound=rec["share_of_fma_bound"])
+        if key == "fwd":
+            slam = t["fwd_f32_slam"]
+            extra.update(
+                prepass="flash_f32_split: Q, K and V^T (keys permuted by 8) split into TF32 "
+                        "hi and lo parts, a second launch of the same wrapper call",
+                launches_f32_slam=f32_counts["dino_flash_attn_f32"],
+                ms_slam=slam["ms"], rounds_ms_slam=slam["rounds_ms"],
+                plain_ms_slam=slam["plain_ms"], library_ms_slam=slam["library_ms"],
+                library_rounds_ms_slam=slam["library_rounds_ms"],
+                bound_ms_slam=slam["bound_ms"], share_of_bound_slam=slam["share_of_bound"],
+                bound_fma_ms_slam=slam["bound_fma_ms"])
+        else:
+            extra["backward_both_kernels"] = t[f"bwd_{dt}"]
         kernels.append({
             "name": name, "route": "cuda", "source": "cdvslam_tpu_torch/csrc/flash_attn.cu",
             "replaces": replaces, "launches": runs[dt]["launches"][src],

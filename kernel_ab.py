@@ -5,10 +5,13 @@
     python3 kernel_ab.py corr OTHER.cu --channels 128   # the same at DPVO's 128 channels
     python3 kernel_ab.py flash_attn OTHER.cu            # csrc/flash_attn.cu against OTHER.cu
     python3 kernel_ab.py flash_attn_bwd OTHER.cu        # the backward kernels, both types
+    python3 kernel_ab.py flash_attn_f32 OTHER.cu        # the float32 forward
 
 OTHER.cu must export the same C functions as the kernel it stands in for
-(``corr_pyramid_forward``; ``flash_attn_qkv_forward``; or
-``flash_attn_qkv_backward_dq`` and ``flash_attn_qkv_backward_dkv``). Both
+(``corr_pyramid_forward``; ``flash_attn_qkv_forward``;
+``flash_attn_qkv_backward_dq`` and ``flash_attn_qkv_backward_dkv``; or
+``flash_attn_qkv_forward_f32``, with its scratch argument where OTHER.cu
+also exports ``flash_attn_f32_rows``, without it where it does not). Both
 are built with the same nvcc flags and called on the same inputs: corr and
 flash_attn at the main-path shape (chip_smoke.py's phase-1 draw for corr, at
 24 channels unless ``--channels`` says 128; packed qkv (1, 1891, 1152) bf16
@@ -17,9 +20,16 @@ for flash_attn, with SDPA on the same tensor beside them), in 10 rounds of
 shape (packed qkv (15, 1611, 1152)) in float32 and in bf16, one call being
 dQ then dK/dV through the two C entry points on the current forward's
 output and log-sum-exp, with SDPA's backward (dq, dk and dv of one
-forward) on the same tensors beside them, in 10 rounds of 5 calls. Prints
-one JSON line: the card, the max difference between the two outputs (per
-type for flash_attn_bwd: of dqkv), the median ms of each and every round.
+forward) on the same tensors beside them, in 10 rounds of 5 calls;
+flash_attn_f32 at the training shape (10 rounds of 5 calls) and the SLAM
+shape (1, 1891) (10 rounds of 30), one call being the forward with the
+log-sum-exp, with SDPA's float32 forward beside them. Prints one JSON line:
+the card, the max difference between the two outputs (per type for
+flash_attn_bwd: of dqkv; per shape for flash_attn_f32: of the output and of
+the log-sum-exp), the median ms of each and every round; flash_attn_f32
+adds each output's error against float64 (of the current source, OTHER.cu
+and SDPA) and the device ms of each kernel the current call launches (the
+pre-pass and the main kernel, by torch.profiler).
 Needs one CUDA card; imports nothing of JAX.
 """
 import argparse
@@ -35,7 +45,7 @@ ROOT = Path(__file__).resolve().parent
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernel", choices=("corr", "flash_attn", "flash_attn_bwd"))
+    ap.add_argument("kernel", choices=("corr", "flash_attn", "flash_attn_bwd", "flash_attn_f32"))
     ap.add_argument("other", type=Path, help="the other version's .cu source")
     ap.add_argument("--channels", type=int, choices=(24, 128), default=24,
                     help="corr only: the channel count of gmap and the fmaps")
@@ -56,9 +66,9 @@ def main():
     lib = ctypes.CDLL(str(so))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    if name == "flash_attn_bwd":
-        print(json.dumps({"kernel": name, "other": other.name, "card": smi,
-                          **backward_ab(lib)}))
+    if name in ("flash_attn_bwd", "flash_attn_f32"):
+        ab = backward_ab if name == "flash_attn_bwd" else forward_f32_ab
+        print(json.dumps({"kernel": name, "other": other.name, "card": smi, **ab(lib)}))
         return 0
     symbol = {"corr": "corr_pyramid_forward", "flash_attn": "flash_attn_qkv_forward"}[name]
     fn = getattr(lib, symbol)
@@ -152,6 +162,95 @@ def backward_ab(lib):
         diff = (run(mine).float() - run(lib).float()).abs().max().item()
         res[key] = {"max_abs_diff": diff, **alternate(fns, 5, warmup=1)}
         del qkv, dout, out, lse, D, q, k, v, sd_out
+        torch.cuda.empty_cache()
+    return res
+
+
+def launch_times(fn, reps):
+    """Device ms per launch of each kernel that ``fn`` launches, by
+    torch.profiler over ``reps`` calls: {kernel name: ms}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count}
+
+
+def _errors_vs_float64(qkv, h, outs):
+    """Each output (and log-sum-exp) against attention in float64 on the
+    same values: max |error| over max |float64|, and the mean signed error
+    along the float64 value's sign over the mean |float64| (below 0: the
+    output leans toward zero)."""
+    import torch
+    from cdvslam_tpu_torch.ops import flash_attn
+    x = qkv.double()
+    B, L, C3 = x.shape
+    o64 = flash_attn.attention_qkv_plain(x, h)
+    q, k, _ = x.reshape(B, L, 3, h, C3 // 3 // h).permute(2, 0, 3, 1, 4).unbind(0)
+    l64 = torch.logsumexp(torch.matmul(q, k.transpose(-1, -2)) * q.shape[-1] ** -0.5, dim=-1)
+    res = {}
+    for name, (o, lse) in outs.items():
+        e = o.double() - o64
+        res[name] = {"out_max_rel": (e.abs().max() / o64.abs().max()).item(),
+                     "out_mean_signed": ((e * o64.sign()).mean() / o64.abs().mean()).item()}
+        if lse is not None:
+            res[name]["lse_max_rel"] = ((lse.double() - l64).abs().max() / l64.abs().max()).item()
+    return res
+
+
+def forward_f32_ab(lib):
+    """The float32 forward with the log-sum-exp, of the current source and
+    of ``lib``, with SDPA's float32 forward beside them, at the training and
+    the SLAM shape: {"train": {...}, "slam": {...}}, each with the max
+    differences of the output and the log-sum-exp, each one's errors
+    against float64, medians and rounds, and the device ms of each launch
+    of the current call."""
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from cdvslam_tpu_torch.ops import flash_attn, native
+    fn = lib.flash_attn_qkv_forward_f32
+    with_ws = hasattr(lib, "flash_attn_f32_rows")   # the three-pass source takes a scratch
+    args = native.SIGNATURES["flash_attn"]["flash_attn_qkv_forward_f32"]
+    fn.argtypes = args if with_ws else args[:3] + args[4:]
+    fn.restype = ctypes.c_int
+    res = {"per": "one call: the forward with the log-sum-exp; sdpa: SDPA's float32 forward; "
+                  "10 alternating rounds"}
+    for key, (B, h, L, d), reps in (("train", cs.TRAIN_SHAPE, 5), ("slam", cs.ATTN_SHAPE, 30)):
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        qkv = torch.randn((B, L, 3 * h * d), generator=gen, device="cuda")
+        q, k, v = qkv.reshape(B, L, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+
+        def other_fn():
+            out = torch.empty((B, L, h * d), device="cuda")
+            lse = torch.empty((B, h, L), device="cuda")
+            ptrs = [qkv.data_ptr(), out.data_ptr(), lse.data_ptr()]
+            if with_ws:
+                rows = lib.flash_attn_f32_rows(L)
+                ws = torch.empty(6 * B * h * rows * d, device="cuda")
+                ptrs.append(ws.data_ptr())
+            stream = torch.cuda.current_stream().cuda_stream
+            native.check(fn(*ptrs, B, L, h, d ** -0.5, stream), "flash_attn_qkv_forward_f32")
+            return out, lse
+
+        fns = {"current": lambda: flash_attn._forward(qkv, h, with_lse=True),
+               "other": other_fn, "sdpa": lambda: F.scaled_dot_product_attention(q, k, v)}
+        (o1, l1), (o2, l2) = fns["current"](), fns["other"]()
+        sd = fns["sdpa"]().transpose(1, 2).reshape(B, L, h * d)
+        res[key] = {"shape": {"B": B, "heads": h, "L": L, "d": d},
+                    "max_abs_diff_out": (o1 - o2).abs().max().item(),
+                    "max_abs_diff_lse": (l1 - l2).abs().max().item(),
+                    "vs_float64": _errors_vs_float64(qkv, h, {"current": (o1, l1),
+                                                              "other": (o2, l2),
+                                                              "sdpa": (sd, None)}),
+                    **alternate(fns, reps, warmup=1),
+                    "current_launch_ms": launch_times(fns["current"], reps)}
+        del qkv, q, k, v, o1, l1, o2, l2, sd
         torch.cuda.empty_cache()
     return res
 

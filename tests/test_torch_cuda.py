@@ -7,8 +7,9 @@ runs the same comparisons at the main-path shapes). Tolerances: corr f32
 bf16 5e-3 of max |plain| against the plain version evaluated in f32 on the
 same bf16 values; flash attention bf16 max abs 2e-2 and relative Frobenius
 1e-2 (bf16 probabilities against bf16 softmax then matmul); flash
-attention float32 (FP32 FMA, TF32 off) 1e-5 of max |plain| on the output
-and on the log-sum-exp; the bf16 forward with the log-sum-exp as the
+attention float32 (three TF32 passes on the tensor cores; the plain
+version with TF32 off) 1e-5 of max |plain| on the output and on the
+log-sum-exp, two calls bitwise equal; the bf16 forward with the log-sum-exp as the
 serving call, its log-sum-exp 1e-3 of max |plain|; the backward kernels
 1e-4 of max |plain| in float32 and 1e-2 in bf16 (the plain backward in
 float32 on the same values, from the plain output and log-sum-exp; the
@@ -142,7 +143,8 @@ def _rel(got, want):
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
-@pytest.mark.parametrize("B,L", [(1, 1), (1, 63), (1, 65), (2, 1000), (1, 1891), (3, 1611)])
+@pytest.mark.parametrize("B,L", [(1, 1), (1, 7), (1, 9), (1, 63), (1, 65), (1, 127), (1, 129),
+                                 (2, 1000), (1, 1891), (3, 1611)])
 def test_flash_attention_f32_matches_plain(card, monkeypatch, B, L):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     g = torch.Generator(device=card).manual_seed(3)
@@ -154,6 +156,19 @@ def test_flash_attention_f32_matches_plain(card, monkeypatch, B, L):
     assert _rel(got, flash_attn.attention_qkv_plain(qkv, 6)) <= 1e-5
     assert _rel(lse, flash_attn.attention_lse_plain(qkv, 6)) <= 1e-5
     assert torch.equal(flash_attn.flash_attention_qkv(qkv, 6), got)   # no-LSE launch
+
+
+def test_flash_attention_f32_is_repeatable_and_counted_once_per_call(card):
+    """Two calls bitwise equal (no atomics; the pre-pass and the kernel are
+    one wrapper call, counted once)."""
+    g = torch.Generator(device=card).manual_seed(6)
+    qkv = torch.randn((2, 777, 3 * 384), generator=g, device=card)
+    before = flash_attn.LAUNCHES_F32.count
+    first, lse1 = flash_attn._forward(qkv, 6, with_lse=True)
+    assert flash_attn.LAUNCHES_F32.count == before + 1
+    second, lse2 = flash_attn._forward(qkv, 6, with_lse=True)
+    assert flash_attn.LAUNCHES_F32.count == before + 2
+    assert torch.equal(first, second) and torch.equal(lse1, lse2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
