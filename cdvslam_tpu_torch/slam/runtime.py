@@ -26,8 +26,13 @@ GRADIENT_BIAS selection, the ``UpdateDPV`` operator and K1 at 128
 channels, with or without the proximity loop closure (DPV-SLAM). It has
 no DINO tokens, so the heads are refused.
 
-Configurations outside the port (the classical loop closure, the viewer)
-raise ``NotImplementedError``.
+With ``CLASSIC_LOOP_CLOSURE`` the classical backend
+(``loop.long_term.LongTermLoopClosure``: ORB + BoW retrieval, triplet
+triangulation, a Sim3 PGO) indexes every frame and tries a closure after
+each update; a backend that cannot be built raises. ``prefetch(image)``
+starts a frame's upload to the device ahead of its ``__call__``.
+
+The viewer is outside the port and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ import torch
 from ..ba.global_ba import build_global_indices, global_ba_solve
 from ..config import get_cfg
 from ..lie import se3_identity, se3_inv, se3_mul
+from ..loop.long_term import LongTermLoopClosure
 from ..loop.proximity import edges_loop
 from ..models import CDVNet, VONet, build_update_aux
 from ..models.datamaps import ADE20K_INDEX_FILT
@@ -61,8 +67,6 @@ def _unsupported(cfg, network, viz):
         return f"network={network!r} (the port runs 'cdv' and 'dpv')"
     if viz:
         return "viz"
-    if cfg.CLASSIC_LOOP_CLOSURE:
-        return "CLASSIC_LOOP_CLOSURE"
     return None
 
 
@@ -178,10 +182,16 @@ class SLAM:
         self._setup_heads()
         self.tlist = []
         self.stats = {"updates": 0, "keyframe_removals": 0, "loop_edges": 0,
-                      "global_ba": 0}
+                      "global_ba": 0, "lc_attempts": 0, "lc_applied": 0}
         self._kf_queue = []   # lagged keyframe decisions (frame id, mm)
         self.last_global_ba = -1000   # n when loop edges were last added
         self.ran_global_ba = set()    # keyframe counts n that ran a global BA
+        self._prefetched = {}         # id(image) -> (image, device frame, upload event)
+        self._upload_stream = None
+        # the JAX package warns and runs without a backend it cannot build;
+        # the port raises (a missing cv2, a failed build of the library)
+        self.long_term_lc = (LongTermLoopClosure(self.cfg, self)
+                             if self.cfg.CLASSIC_LOOP_CLOSURE else None)
 
     def _setup_heads(self):
         """The seg and depth heads, in the geometry's type on the device:
@@ -306,13 +316,46 @@ class SLAM:
         gmap, ictx, patches = extract_patches(fmap, imap, disps, coords, P)
         return fmap, ictx, gmap, patches[0].to(self.gdtype)
 
+    def prefetch(self, image):
+        """Start the upload of a future frame: a copy into pinned host
+        memory, then a non-blocking copy to the device on an upload stream.
+        Pass the same array to ``__call__`` later. At most 4 uploads are
+        kept, keyed by ``id(image)`` (each entry holds the array, so its id
+        is not reused while it waits); on the CPU it is a plain copy."""
+        host = torch.from_numpy(np.asarray(image))
+        if self.device.type != "cuda":
+            frame, ready = host.clone(), None
+        else:
+            if self._upload_stream is None:
+                self._upload_stream = torch.cuda.Stream(self.device)
+            pinned = host.pin_memory()
+            with torch.cuda.stream(self._upload_stream):
+                frame = pinned.to(self.device, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record()
+        self._prefetched[id(image)] = (image, frame, ready)
+        if len(self._prefetched) > 4:
+            self._prefetched.pop(next(iter(self._prefetched)))
+
+    def _frame_on_device(self, image):
+        """The frame as a tensor on the device: its prefetched upload (the
+        main stream waits on it), else a copy made now."""
+        _, frame, ready = self._prefetched.pop(id(image), (None, None, None))
+        if frame is None:
+            return torch.as_tensor(np.asarray(image)).to(self.device)
+        if ready is not None:
+            main = torch.cuda.current_stream(self.device)
+            main.wait_event(ready)
+            frame.record_stream(main)
+        return frame
+
     def _insert_frame(self, image, n, fac, initialized, intrinsics, counter):
         """Features, patch selection and gathers, the heads, motion model,
         depth init, and the writes of frame row n; ``counter`` is the
         frame's id."""
         cfg, pg, M, P = self.cfg, self.pg, self.M, self.P
         dev = self.device
-        img = torch.as_tensor(np.asarray(image)).to(dev).float()
+        img = self._frame_on_device(image).float()
         cand, drand = self.patch_sampler(counter)
         cand = torch.as_tensor(np.array(cand, np.float32), device=dev).reshape(-1, 2)
         drand = torch.as_tensor(np.array(drand, np.float32), device=dev).reshape(M)
@@ -576,6 +619,8 @@ class SLAM:
             else:
                 self._kf_apply(None)
             n = pg.n
+            if self.long_term_lc is not None:
+                self.long_term_lc(image, n)
             self.tlist.append(tstamp)
             pg.tstamps_[n] = pg.counter
             fac = self._motion_fac(n)
@@ -589,9 +634,12 @@ class SLAM:
             if pg.n - cfg.KEYFRAME_INDEX >= 1:
                 self._kf_queue.append(
                     (int(pg.tstamps_[pg.n - cfg.KEYFRAME_INDEX]), mm))
+            self._attempt_loop_closure()
             return "Is keyframe"
 
         n = pg.n
+        if self.long_term_lc is not None:
+            self.long_term_lc(image, n)
         self.tlist.append(tstamp)
         pg.tstamps_[n] = pg.counter
         self._insert_frame(image, n, self._motion_fac(n), False, intrinsics,
@@ -610,12 +658,21 @@ class SLAM:
             self.is_initialized = True
             for _ in range(12):
                 self.update()
+            self._attempt_loop_closure()
         return "Is keyframe"
+
+    def _attempt_loop_closure(self):
+        """The classical backend's closure attempt for the newest frame and
+        the write-back of any finished PGO."""
+        if self.long_term_lc is not None:
+            self.long_term_lc.attempt_loop_closure(self.pg.n)
+            self.long_term_lc.lc_callback()
 
     # ------------------------------------------------------------------
     @torch.no_grad()
     def terminate(self):
-        """Drain the keyframe queue, add a last round of loop edges (under
+        """Drain the keyframe queue, let the classical backend make its
+        last attempt and apply its PGO, add a last round of loop edges (under
         loop closure), run 12 updates (each followed by a global BA while
         loop edges are active), and return the (F, 7) camera-to-world poses
         of every frame (removed frames interpolated through the delta
@@ -627,6 +684,8 @@ class SLAM:
             return poses, np.array(self.tlist, np.float64)
         while self._kf_queue:
             self._kf_apply(self._decide_row(*self._kf_queue.pop(0)))
+        if self.long_term_lc is not None:
+            self.long_term_lc.terminate(pg.n)
         if self.cfg.LOOP_CLOSURE:
             kk, jj = edges_loop(pg, self.cfg)
             if len(kk):

@@ -36,10 +36,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
      beside it
   3  bundle adjustment run twice at E = 9600, K = 2688: bitwise equal
   4  the main path: SLAM(get_cfg(), "cdv", 480, 752) with seeded random
-     weights and 8 seeded random frames cycled, 60 warm-up frames, one
-     100-frame timed window, terminate(); poses finite, corr launched
-     once per update and flash attention 12 times per frame; the corr
-     inputs of the last warm-up frame's update are captured
+     weights and 8 seeded random frames cycled, each prefetched one frame
+     ahead (SLAM.prefetch), 60 warm-up frames, one 100-frame timed
+     window, then 10 blocks of 20 frames alternating without and with the
+     prefetch (the prefetched blocks' median time no more than the
+     others' median plus their interquartile range),
+     terminate(); poses finite, corr launched once per update and flash
+     attention 12 times per frame; the corr inputs of the last warm-up
+     frame's update are captured
   4-f32  40 frames of the main path with MIXED_PRECISION=False: FPS, poses
      finite, 12 float32 K2 launches per frame and no bf16 one
   5  K1 on those captured inputs: parity (bf16 rule above) and times
@@ -53,6 +57,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
      attention launches per frame; one global BA's inputs are captured and
      solved twice (bitwise equal), and the corr inputs of one update that
      holds loop edges are captured, checked (bf16 rule) and timed
+  6-classic  the published config/default_cdvslam.yaml with its classical
+     backend (ORB + BoW retrieval, triplet triangulation, Sim3 PGO in a
+     worker thread) and the proximity backend on, phase 6's cut,
+     LC_FRAMES frames of a camera circling a rendered textured plane
+     (PlaneScene; frame 100 + k revisits frame k): FPS beside phase 4's
+     (with and without a PGO worker running), retrieval ms per frame,
+     lc_attempts (must be above 0) and lc_applied, ms per PGO; then
+     close_loop on a known state of 1,000 keyframes (classic_state: the
+     path's true poses with a seeded drift, the plane's true inverse
+     depths) under CLASSIC_LOOP_SYNC on the card and in a float64 CPU run
+     of the port: a correction applied within 1e-3 of the CPU run per pose
+     component, ms per close_loop and per run_pgo
   7  the CDVO++ path: get_cfg() merged with config/default_cdvo++.yaml
      (SCORE selection, linear seg and depth heads, FILTER_DYNAMIC_CLASS)
      with SEG_HEAD="random", DEPTH_HEAD="random" and MOTION_PROBE_THR=-1,
@@ -90,7 +106,8 @@ path, max error, kernel / plain / library times and the roofline bound;
 K1's record adds the phase-5 times as ms_main_path and friends, the
 phase-6 times as ms_loop_update and friends, and phase 8's as ms_c128,
 ms_dpvo_update, ms_dpv_loop_update and friends; both records add
-launches_loop_path, launches_cdvo_pp_path and launches_dpvo_path; the
+launches_loop_path, launches_classic_path, launches_cdvo_pp_path and
+launches_dpvo_path; the
 float32 forward and the two backward kernels of K2 have records of their
 own, timed at the training shape, with phase 9's launches, and the bf16
 backward kernels (wgmma kernels apart from the float32 ones) records of
@@ -622,20 +639,34 @@ def phase3():
 
 
 def phase4(smi):
-    """The main path; returns the launch counts and the corr kernel's inputs
-    captured from the last warm-up frame's update."""
+    """The main path, each frame prefetched one frame ahead
+    (``SLAM.prefetch``); returns the launch counts, the corr kernel's inputs
+    captured from the last warm-up frame's update, and the FPS. After the
+    timed window, 10 blocks of 20 frames alternate without and with the
+    prefetch: the prefetched blocks' median time must not exceed the
+    others' median by more than the others' own spread (their
+    interquartile range)."""
     import numpy as np
     import torch
     from cdvslam_tpu_torch.config import get_cfg
     from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
     from cdvslam_tpu_torch.slam import SLAM
     from cdvslam_tpu_torch.slam import kernels as slam_kernels
-    ht, wd, WARM, WIN = 480, 752, 60, 100
+    ht, wd, WARM, WIN, BLOCK, BLOCKS = 480, 752, 60, 100, 20, 10
     cfg = get_cfg()
     cfg.MOTION_PROBE_THR = -1.0
     frames, intr = _frames(ht, wd)
     kernel = slam_kernels.corr_pyramid_cl
     captured = []
+
+    def run(fs, prefetch=True):
+        """Frames fs, each prefetched while the one before it runs."""
+        if prefetch:
+            slam.prefetch(frames[fs[0] % 8])
+        for f in fs:
+            if prefetch and f + 1 < fs.stop:
+                slam.prefetch(frames[(f + 1) % 8])
+            slam(f, frames[f % 8], intr)
 
     def capture(*args):
         captured.append(tuple(a.clone() for a in args[:6]))   # the tensors
@@ -645,29 +676,36 @@ def phase4(smi):
     flash_attn.LAUNCHES.reset()
     slam = SLAM(cfg, network="cdv", ht=ht, wd=wd, seed=0)
     t_start = time.perf_counter()
-    for f in range(WARM):
-        if f == WARM - 1:
-            slam_kernels.corr_pyramid_cl = capture
-        try:
-            slam(f, frames[f % 8], intr)
-        finally:
-            slam_kernels.corr_pyramid_cl = kernel
+    run(range(WARM - 1))
+    slam_kernels.corr_pyramid_cl = capture
+    try:
+        run(range(WARM - 1, WARM))
+    finally:
+        slam_kernels.corr_pyramid_cl = kernel
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t_start
     upd0, corr0, attn0 = slam.stats["updates"], corr_cuda.LAUNCHES.count, flash_attn.LAUNCHES.count
     t0 = time.perf_counter()
-    for f in range(WARM, WARM + WIN):
-        slam(f, frames[f % 8], intr)
+    run(range(WARM, WARM + WIN))
     torch.cuda.synchronize()
     win_s = time.perf_counter() - t0
     win_updates = slam.stats["updates"] - upd0
     win_corr = corr_cuda.LAUNCHES.count - corr0
     win_attn = flash_attn.LAUNCHES.count - attn0
     edges = slam.pg.E
+    block_s = {False: [], True: []}
+    for b in range(BLOCKS):
+        first = WARM + WIN + b * BLOCK
+        t = time.perf_counter()
+        run(range(first, first + BLOCK), prefetch=b % 2 == 1)
+        torch.cuda.synchronize()
+        block_s[b % 2 == 1].append(time.perf_counter() - t)
     poses, tstamps = slam.terminate()
     torch.cuda.synchronize()
     counts = {"corr": corr_cuda.LAUNCHES.count, "dino_flash_attn": flash_attn.LAUNCHES.count}
-    frames_run = WARM + WIN
+    frames_run = WARM + WIN + BLOCK * BLOCKS
+    q1, med, q3 = statistics.quantiles(block_s[False], n=4)
+    prefetch_ratio = statistics.median(block_s[True]) / med
     checks = {
         "poses_shape": list(poses.shape) == [frames_run, 7],
         "poses_finite": bool(np.isfinite(poses).all()),
@@ -676,16 +714,22 @@ def phase4(smi):
         "one_update_per_frame": win_updates == WIN,
         "corr_inputs_captured": len(captured) == 1,
         "no_inactive_store": slam.pg.tw is None and len(slam.pg.ii_inac) == 0,
+        "prefetch_no_slower": statistics.median(block_s[True]) <= med + (q3 - q1),
+        "prefetch_all_used": not slam._prefetched,
     }
     ok = all(checks.values())
     emit({"phase": 4, "fps": WIN / win_s, "window_s": win_s, "warmup_s": warm_s,
+          "prefetch_blocks_s": block_s[True], "plain_blocks_s": block_s[False],
+          "fps_prefetch_blocks": BLOCK * len(block_s[True]) / sum(block_s[True]),
+          "fps_plain_blocks": BLOCK * len(block_s[False]) / sum(block_s[False]),
+          "prefetch_median_ratio": prefetch_ratio, "plain_blocks_iqr_s": q3 - q1,
           "frames": frames_run, "updates": slam.stats["updates"],
           "keyframe_removals": slam.stats["keyframe_removals"], "edges": edges,
           "launches": counts, "checks": checks, "card": smi,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "ok": ok})
     if not ok:
         raise SystemExit(f"phase 4: main path checks failed: {checks}")
-    return counts, captured[0]
+    return counts, captured[0], WIN / win_s
 
 
 def phase4_f32(smi, nframes=40):
@@ -892,6 +936,298 @@ def phase6(smi):
     if not ok:
         raise SystemExit(f"phase 6: loop-closure path checks failed: {checks}")
     return counts, captured["corr"]
+
+
+EUROC_INTR = (458.654, 457.296, 367.215, 248.375)
+
+
+def _pose_rt(pose):
+    """(R, t) of a world->cam SE3 [tx, ty, tz, qx, qy, qz, qw]."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+    return Rotation.from_quat(pose[3:7]).as_matrix(), np.asarray(pose[:3], np.float64)
+
+
+def _se3(R, t):
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+    return np.concatenate([t, Rotation.from_matrix(R).as_quat()])
+
+
+class PlaneScene:
+    """A textured plane z = 0 seen by a pinhole camera (numpy and cv2):
+    every frame is a warp of one seeded texture, so ORB keypoints and
+    triangulated points agree with the poses. Poses are world->cam SE3."""
+
+    SIZE, EXTENT = 2048, 8.0      # texture pixels across [-8, 8]^2 world units
+
+    def __init__(self, intr, ht, wd):
+        import cv2
+        import numpy as np
+        tex_size = self.SIZE
+        rng = np.random.RandomState(3)
+        tex = (rng.rand(tex_size // 16, tex_size // 16) * 255).astype(np.uint8)
+        tex = cv2.resize(tex, (tex_size, tex_size), interpolation=cv2.INTER_NEAREST)
+        tex = np.ascontiguousarray(np.stack([cv2.GaussianBlur(tex, (7, 7), 1.2)] * 3, -1))
+        for _ in range(400):        # coloured blobs: corners for ORB
+            c, r = rng.randint(0, tex_size, 2), rng.randint(4, 24)
+            cv2.circle(tex, (int(c[0]), int(c[1])), int(r), rng.randint(0, 255, 3).tolist(), -1)
+        self.tex = tex
+        self.intr = np.asarray(intr, np.float64)
+        self.ht, self.wd = ht, wd
+
+    def _hits(self, pose, u, v, intr):
+        """Plane points on the rays through pixels (u, v), and the ray
+        lengths."""
+        import numpy as np
+        R, t = _pose_rt(pose)
+        fx, fy, cx, cy = intr
+        d = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u)], -1) @ R   # R^T r
+        C = -R.T @ t
+        lam = -C[2] / np.where(np.abs(d[..., 2]) > 1e-9, d[..., 2], 1e-9)
+        return C + lam[..., None] * d, lam
+
+    def render(self, pose):
+        """(ht, wd, 3) uint8 view from the world->cam pose."""
+        import cv2
+        import numpy as np
+        u, v = np.meshgrid(np.arange(self.wd, dtype=np.float64),
+                           np.arange(self.ht, dtype=np.float64))
+        P, lam = self._hits(pose, u, v, self.intr)
+        txy = (P[..., :2] + self.EXTENT) / (2 * self.EXTENT) * self.SIZE
+        maps = [np.where(lam > 0.05, txy[..., k], -1).astype(np.float32) for k in (0, 1)]
+        return cv2.remap(self.tex, maps[0], maps[1], cv2.INTER_LINEAR, borderMode=cv2.BORDER_WRAP)
+
+    def true_inv_depth(self, pose, px, py):
+        """Inverse depths of the plane at quarter-resolution pixels (px, py)."""
+        import numpy as np
+        R, t = _pose_rt(pose)
+        P, _ = self._hits(pose, px, py, self.intr / 4)
+        return 1.0 / np.clip((P @ R.T + t)[..., 2], 0.05, None)
+
+
+def loop_path(nframes, period):
+    """(nframes, 7) world->cam poses of a camera 2 units above the plane
+    looking down, circling (radius 0.8) with one turn per ``period`` frames
+    (frame period + k revisits frame k) and yawing about its optical axis."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+    down = Rotation.from_euler("x", np.pi).as_matrix()
+    out = []
+    for f in range(nframes):
+        th = 2 * np.pi * f / period
+        C = np.array([0.8 * np.cos(th), 0.8 * np.sin(th), 2.0])
+        R = Rotation.from_euler("z", 0.3 * np.sin(th)).as_matrix() @ down
+        out.append(_se3(R, -R @ C))
+    return np.stack(out)
+
+
+def classic_state(n, M, ht, wd, intr, loop):
+    """A keyframe state for the classical backend: n keyframes of
+    ``loop_path(n, n - 20)`` with a seeded drift (rotation and translation
+    noise, scale growing to 2x), M patches per frame at seeded quarter-
+    resolution pixels with the plane's true inverse depths, and the gray
+    frames of the loop pair's triplets. Returns (poses (n, 7), patches
+    (n * M, 3, 3, 3), intrinsics / 4 (4,), {frame id: gray})."""
+    import cv2
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+    scene = PlaneScene(intr, ht, wd)
+    gt = loop_path(n, n - 20)
+    rng = np.random.RandomState(0)
+
+    def mat(pose):
+        G = np.eye(4)
+        G[:3, :3], G[:3, 3] = _pose_rt(pose)
+        return G
+
+    est = [mat(gt[0])]
+    for k in range(1, n):
+        rel = mat(gt[k]) @ np.linalg.inv(mat(gt[k - 1]))
+        rel[:3, 3] *= np.exp(np.log(2.0) * k / n)
+        noise = np.eye(4)
+        noise[:3, :3] = Rotation.from_rotvec(0.002 * rng.randn(3)).as_matrix()
+        noise[:3, 3] = 0.002 * rng.randn(3)
+        est.append(noise @ rel @ est[-1])
+    poses = np.stack([_se3(G[:3, :3], G[:3, 3]) for G in est])
+    patches = np.zeros((n * M, 3, 3, 3))
+    for f in range(n):
+        px, py = rng.uniform(2, wd / 4 - 2, M), rng.uniform(2, ht / 4 - 2, M)
+        for c, val in enumerate((px, py, scene.true_inv_depth(gt[f], px, py))):
+            patches[f * M:(f + 1) * M, c] = val[:, None, None]
+    gray = {f: cv2.cvtColor(scene.render(gt[f]), cv2.COLOR_RGB2GRAY)
+            for i in loop for f in (i - 1, i, i + 1)}
+    return poses, patches, np.asarray(intr, np.float64) / 4, gray
+
+
+def fill_classic_state(slam, state):
+    """Write ``classic_state`` into a port SLAM's patch graph (every frame
+    a keyframe, ids 0..n-1) and index the triplets' frames."""
+    import numpy as np
+    import torch
+    poses, patches, intr4, gray = state
+    pg, n = slam.pg, len(poses)
+    pg.n, pg.m, pg.counter = n, len(patches), n
+    pg.tstamps_[:n] = np.arange(n)
+    for buf, val in ((pg.poses_, poses), (pg.patches_, patches),
+                     (pg.intrinsics_, np.broadcast_to(intr4, (n, 4)))):
+        buf[:len(val)] = torch.as_tensor(val, dtype=buf.dtype, device=buf.device)
+    for f, g in gray.items():
+        slam.long_term_lc.retrieval.insert_image(g, f)
+
+
+def _classic_cfg():
+    """default_cdvslam.yaml as published (classical backend and proximity
+    loop closure on), with phase 6's cut: no motion probe,
+    KEYFRAME_THRESH=0."""
+    cfg = _preset("default_cdvslam.yaml")
+    cfg.MOTION_PROBE_THR = -1.0
+    cfg.KEYFRAME_THRESH = 0.0
+    return cfg
+
+
+def phase6_classic(smi, fps_main):
+    """The published default_cdvslam.yaml with the classical backend on, on
+    rendered loop frames; then the backend on a known 1,000-keyframe state
+    against the port's float64 CPU run. Returns the launch counts."""
+    import numpy as np
+    import torch
+    from cdvslam_tpu_torch.loop import long_term
+    from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
+    from cdvslam_tpu_torch.slam import SLAM
+    ht, wd = 480, 752
+    cfg = _classic_cfg()
+    t = time.perf_counter()
+    scene = PlaneScene(EUROC_INTR, ht, wd)
+    frames = [scene.render(p) for p in loop_path(LC_FRAMES, LC_FRAMES - 20)]
+    render_s = time.perf_counter() - t
+    intr = np.asarray(EUROC_INTR, np.float32)
+    slam = SLAM(cfg, network="cdv", ht=ht, wd=wd, seed=0)
+    lc, run_pgo = slam.long_term_lc, long_term.run_pgo
+    index_ms, query_ms, pgo_ms = [], [], []
+
+    def host_timed(fn, log):
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            log.append((time.perf_counter() - t) * 1e3)
+            return out
+        return timed
+
+    def timed_pgo(*args, **kwargs):            # on the worker's stream
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ends[0].record()
+        out = run_pgo(*args, **kwargs)
+        ends[1].record()
+        ends[1].synchronize()
+        pgo_ms.append(ends[0].elapsed_time(ends[1]))
+        return out
+
+    lc.retrieval.insert_image = host_timed(lc.retrieval.insert_image, index_ms)
+    lc.retrieval.detect_loop = host_timed(lc.retrieval.detect_loop, query_ms)
+    long_term.run_pgo = timed_pgo
+    corr_cuda.LAUNCHES.reset()
+    flash_attn.LAUNCHES.reset()
+    frame_ms, pgo_running = [], []
+    try:
+        for f in range(LC_FRAMES):
+            t = time.perf_counter()
+            slam(f, frames[f], intr)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t) * 1e3)
+            pgo_running.append(lc.worker is not None and lc.worker.is_alive())
+        run_updates = slam.stats["updates"]
+        poses, _ = slam.terminate()
+        torch.cuda.synchronize()
+    finally:
+        long_term.run_pgo = run_pgo
+    counts = {"corr": corr_cuda.LAUNCHES.count, "dino_flash_attn": flash_attn.LAUNCHES.count}
+    steady = frame_ms[8:]
+    split = {name: [ms for ms, busy in zip(steady, pgo_running[8:]) if busy == want]
+             for name, want in (("pgo_worker_running", True), ("no_pgo_worker", False))}
+    known = _classic_known_state()
+    checks = {
+        "lc_attempts": slam.stats["lc_attempts"] > 0,
+        "poses_shape": list(poses.shape) == [LC_FRAMES, 7],
+        "poses_finite": bool(np.isfinite(poses).all()),
+        "every_frame_indexed": len(index_ms) == LC_FRAMES,
+        "corr_1_per_update": counts["corr"] == slam.stats["updates"],
+        "one_update_per_frame": run_updates == 12 + (LC_FRAMES - 8),
+        "attn_12_per_frame": counts["dino_flash_attn"] == 12 * LC_FRAMES,
+        **known.pop("checks"),
+    }
+    ok = all(checks.values())
+    emit({"phase": "6-classic", "frames": LC_FRAMES, "keyframes": slam.pg.n,
+          "fps": len(steady) / (sum(steady) / 1e3), "fps_phase4": fps_main,
+          "fps_frames": {k: {"fps": len(v) / (sum(v) / 1e3) if v else None, "frames": len(v)}
+                         for k, v in split.items()},
+          "lc_attempts": slam.stats["lc_attempts"], "lc_applied": slam.stats["lc_applied"],
+          "loop_pairs": lc.loop_pairs, "last_failure": getattr(lc, "_fail", None),
+          "retrieval_ms_per_frame": (sum(index_ms) + sum(query_ms)) / LC_FRAMES,
+          "index_ms_median": statistics.median(index_ms),
+          "query_ms_median": statistics.median(query_ms) if query_ms else None,
+          "pgo_ms": pgo_ms, "loop_edges": slam.stats["loop_edges"],
+          "global_ba": slam.stats["global_ba"], "render_s": render_s,
+          "launches": counts, "known_state": known, "checks": checks, "card": smi,
+          "cuts": {"KEYFRAME_THRESH": 0.0, "MOTION_PROBE_THR": -1.0,
+                   "weights": "random (seed 0)", "frames": LC_FRAMES}, "ok": ok})
+    if not ok:
+        raise SystemExit(f"phase 6-classic: classical loop-closure checks failed: {checks}")
+    return counts
+
+
+KNOWN_N, KNOWN_LOOP = 1000, (985, 5)   # frame 985 revisits frame 5
+
+
+def _classic_known_state():
+    """close_loop on a known 1,000-keyframe state under CLASSIC_LOOP_SYNC, on
+    the card and in a float64 CPU run of the port: the correction applied,
+    the gap between the two, ms per close_loop and per run_pgo."""
+    import torch
+    from cdvslam_tpu_torch.loop import long_term
+    from cdvslam_tpu_torch.slam import SLAM
+    ht, wd = 480, 752
+    cfg = _classic_cfg()
+    cfg.CLASSIC_LOOP_SYNC = True
+    cfg.BUFFER_SIZE = 1024
+    t = time.perf_counter()
+    state = classic_state(KNOWN_N, cfg.PATCHES_PER_FRAME, ht, wd, EUROC_INTR, KNOWN_LOOP)
+    state_s = time.perf_counter() - t
+    run_pgo, captured, out = long_term.run_pgo, [], {}
+
+    def capture(*args, **kwargs):
+        captured.append(args)
+        return run_pgo(*args, **kwargs)
+
+    long_term.run_pgo = capture
+    try:
+        for side, kwargs in (("card", {}), ("cpu_f64", {"device": "cpu", "dtype": torch.float64})):
+            slam = SLAM(cfg, network="cdv", ht=ht, wd=wd, seed=0, **kwargs)
+            fill_classic_state(slam, state)
+            before = slam.pg.poses_[:KNOWN_N].clone()
+            if side == "card":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            slam.long_term_lc.close_loop(*KNOWN_LOOP)
+            slam.long_term_lc.lc_callback()
+            if side == "card":
+                torch.cuda.synchronize()
+            out[side] = {"ms": (time.perf_counter() - t) * 1e3, "stats": dict(slam.stats),
+                         "poses": slam.pg.poses_[:KNOWN_N].double().cpu(),
+                         "moved": float((slam.pg.poses_[:KNOWN_N] - before).abs().max()),
+                         "fail": getattr(slam.long_term_lc, "_fail", None)}
+    finally:
+        long_term.run_pgo = run_pgo
+    gap = float((out["card"]["poses"] - out["cpu_f64"]["poses"]).abs().max())
+    pgo_ms = cuda_time(lambda: run_pgo(*captured[0]), 3, warmup=1) if captured else None
+    return {"n": KNOWN_N, "loop": list(KNOWN_LOOP), "state_s": state_s,
+            "close_loop_ms": out["card"]["ms"], "close_loop_ms_cpu_f64": out["cpu_f64"]["ms"],
+            "run_pgo_ms": pgo_ms, "pgo_rows": int(captured[0][1].shape[0]) if captured else None,
+            "max_pose_gap_vs_cpu_f64": gap, "moved": out["card"]["moved"],
+            "failure": out["card"]["fail"],
+            "checks": {"known_state_applied": all(out[s]["stats"]["lc_applied"] == 1 for s in out),
+                       "known_state_moved": out["card"]["moved"] > 1e-2,
+                       "known_state_vs_cpu_f64": gap <= 1e-3}}
 
 
 def _cdvo_pp_cfg(depth_head="random"):
@@ -1616,11 +1952,12 @@ def main():
     attn_rec = phase2()
     train_rec = phase2_train()
     phase3()
-    counts, captured = phase4(smi)
+    counts, captured, fps_main = phase4(smi)
     f32_counts = phase4_f32(smi)
     main_rec = corr_on_captured(5, captured)
     lc_counts, lc_captured = phase6(smi)
     loop_rec = corr_on_captured("6-corr", lc_captured)
+    classic_counts = phase6_classic(smi, fps_main)
     pp_counts = phase7(smi)
     c128_rec = phase1(128, "8-corr", seed=8)
     dpvo_counts, dpvo_captured, dpv_loop_captured, dpv_loop_counts = phase8(smi)
@@ -1643,6 +1980,7 @@ def main():
          "bound_ms_main_path": main_rec["bound_ms"],
          "box_share_main_path": main_rec["box_share"],
          "launches_loop_path": lc_counts["corr"],
+         "launches_classic_path": classic_counts["corr"],
          "launches_cdvo_pp_path": pp_counts["corr"],
          "E_loop_update": lc_captured[3].shape[0], "ms_loop_update": loop_rec["ms"],
          "plain_ms_loop_update": loop_rec["plain_ms"],
@@ -1671,6 +2009,7 @@ def main():
          "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
          "library_ms": attn_rec["library_ms"],
          "launches_loop_path": lc_counts["dino_flash_attn"],
+         "launches_classic_path": classic_counts["dino_flash_attn"],
          "launches_cdvo_pp_path": pp_counts["dino_flash_attn"],
          "launches_dpvo_path": dpvo_counts["dino_flash_attn"],
          "per": "one call, packed qkv (1, 1891, 1152) bf16 -> (1, 1891, 384); ms and "

@@ -30,7 +30,10 @@ and gradient on the card held to a float64 CPU run of the port: loss 1e-4
 relative, each gradient leaf within 3x its own float32 noise plus 1e-3
 (cuDNN, cuBLAS and the card's scatter-adds sum in other orders and the
 damped BA solves amplify it); the segment sums' backward on the card
-exactly (a gather).
+exactly (a gather); the Sim3 PGO at n = 200 on the card against the CPU,
+both solving in float64, 1e-6 per component; the classical backend's
+worker thread (its own stream) against the same close_loop inline, poses
+and depths 1e-6.
 """
 from pathlib import Path
 
@@ -452,3 +455,65 @@ def test_segment_sums_backward_on_the_card(card):
     want = torch.where(((ids >= 0) & (ids < 4))[:, None, None], up[ids.clamp(0, 3)],
                        torch.zeros((), device=card))
     assert torch.equal(vals.grad, want)
+
+
+def _pgo_ring(n=200, seed=0, noise=0.01):
+    """A closed n-keyframe ring (world->cam, float64), its drifted estimate
+    and two loop edges measured on the truth."""
+    from cdvslam_tpu_torch.lie import se3_inv, se3_to_sim3, sim3_inv, sim3_mul
+    rng = np.random.RandomState(seed)
+    th = 2 * np.pi * np.arange(n) / n
+    xi = np.stack([np.sin(th), 0.1 * np.sin(2 * th), 1 - np.cos(th), 0 * th, th, 0 * th], 1)
+    gt = se3_exp(torch.tensor(xi, dtype=torch.float64))
+    est = [gt[0]]
+    for i in range(1, n):
+        rel = se3_mul(gt[i], se3_inv(gt[i - 1]))
+        est.append(se3_mul(se3_mul(se3_exp(torch.tensor(noise * rng.randn(6))), rel), est[-1]))
+    G = se3_to_sim3(gt)
+    pairs = [(n - 1, 0), (3 * n // 4, n // 8)]
+    C = torch.stack([sim3_mul(G[j], sim3_inv(G[i])) for i, j in pairs])
+    return torch.stack(est), C, np.array([i for i, _ in pairs]), np.array([j for _, j in pairs])
+
+
+def test_run_pgo_on_the_card_matches_the_cpu_float64(card):
+    """The Sim3 PGO at n = 200 on the SLAM's float32 poses: on the card and
+    on the CPU it solves in float64 (only the sums' order differs), within
+    1e-6 per component."""
+    from cdvslam_tpu_torch.ba.pgo import run_pgo
+    est, C, ii, jj = _pgo_ring()
+    est, C = est.float(), C.float()
+    safe_c, out_c = run_pgo(est.to(card), C.to(card), ii, jj)
+    safe_h, out_h = run_pgo(est, C, ii, jj)
+    assert safe_c == safe_h == 200 and out_c.dtype == torch.float64
+    assert float((out_c.cpu() - out_h).abs().max()) <= 1e-6
+
+
+def test_classic_worker_thread_matches_inline_on_the_card(card):
+    """close_loop on a rendered 64-keyframe state (chip_smoke.classic_state):
+    the PGO in the worker thread on its own stream (no CLASSIC_LOOP_SYNC),
+    applied once the backend's terminate() has joined it, against the same
+    call inline; poses and depths within 1e-6."""
+    import chip_smoke
+    n, loop = 64, (49, 5)
+    results = {}
+    for sync in (True, False):
+        cfg = get_cfg()
+        cfg.PATCHES_PER_FRAME = 8
+        cfg.BUFFER_SIZE = 96
+        cfg.CLASSIC_LOOP_CLOSURE = True
+        cfg.CLASSIC_LOOP_SYNC = sync
+        slam = SLAM(cfg, "dpv", ht=64, wd=64)
+        chip_smoke.fill_classic_state(slam, chip_smoke.classic_state(
+            n, 8, 480, 752, chip_smoke.EUROC_INTR, loop))
+        lc = slam.long_term_lc
+        lc.close_loop(*loop)
+        if sync:
+            lc.lc_callback()
+        else:
+            assert lc.worker is not None
+            lc.terminate(slam.pg.n)
+            assert not lc.worker.is_alive() and lc.stream is not None
+        assert slam.stats["lc_applied"] == 1, getattr(lc, "_fail", None)
+        results[sync] = (slam.pg.poses_[:n].clone(), slam.pg.patches_[: n * 8, 2].clone())
+    for a, b in zip(results[True], results[False]):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-6)

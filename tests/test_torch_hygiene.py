@@ -1,7 +1,8 @@
 """Package rules of the port: no JAX (the training, data and parallel
 modules included), the card by default (SLAM and the training entry point),
-configs outside the ported slice refused, and the heads' set-up rules (CDV)
-and refusal (DPVO)."""
+configs outside the ported slice refused, the classical loop closure built
+(and a backend that cannot be built raised), and the heads' set-up rules
+(CDV) and refusal (DPVO)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -67,7 +68,7 @@ def test_slam_defaults_to_the_card_and_raises_without_one(monkeypatch):
         SLAM(get_cfg(), "cdv", ht=64, wd=96)
 
 
-def _build(change, error):
+def _build(change, error=None):
     cfg = get_cfg()
     kwargs = {"device": "cpu"}
     for k, v in change.items():
@@ -75,17 +76,41 @@ def _build(change, error):
             kwargs[k] = v
         else:
             cfg[k] = v
+    if error is None:
+        return SLAM(cfg, ht=64, wd=96, **kwargs)
     with pytest.raises(error):
         SLAM(cfg, ht=64, wd=96, **kwargs)
 
 
 @pytest.mark.parametrize("change", [
-    {"network": "dpv", "CLASSIC_LOOP_CLOSURE": True}, {"viz": True},
-    {"LOOP_CLOSURE": True, "CLASSIC_LOOP_CLOSURE": True}, {"CLASSIC_LOOP_CLOSURE": True},
-    {"network": "dpv", "viz": True}, {"network": "vonet"},
+    {"viz": True}, {"network": "dpv", "viz": True}, {"network": "vonet"},
 ])
 def test_configs_outside_the_slice_raise(change):
     _build(change, NotImplementedError)
+
+
+@pytest.mark.parametrize("change", [
+    {"network": "dpv", "CLASSIC_LOOP_CLOSURE": True},
+    {"LOOP_CLOSURE": True, "CLASSIC_LOOP_CLOSURE": True}, {"CLASSIC_LOOP_CLOSURE": True},
+])
+def test_classic_loop_closure_builds_on_the_cpu(change):
+    """Refused until the classical backend was ported; each builds a SLAM
+    with its backend attached (cv2 and g++ are on this host)."""
+    from cdvslam_tpu_torch.loop.long_term import LongTermLoopClosure
+    slam = _build(change)
+    assert isinstance(slam.long_term_lc, LongTermLoopClosure)
+    assert slam.stats["lc_attempts"] == slam.stats["lc_applied"] == 0
+
+
+def test_classic_backend_that_cannot_load_its_library_raises(monkeypatch, tmp_path):
+    """The JAX package warns and turns the backend off; the port raises."""
+    from cdvslam_tpu_torch.loop import retrieval
+    monkeypatch.setattr(retrieval, "_LIB", None)
+    monkeypatch.setattr(retrieval, "SOURCE", tmp_path / "missing.cpp")
+    monkeypatch.setattr(retrieval, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "missing.cpp").write_text("this is not C++\n")
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        _build({"CLASSIC_LOOP_CLOSURE": True})
 
 
 @pytest.mark.parametrize("change", [
@@ -138,6 +163,18 @@ def test_missing_head_checkpoint_raises(tmp_path, key):
     cfg[key] = str(tmp_path / "missing.pth")
     with pytest.raises(FileNotFoundError, match="missing.pth"):
         SLAM(cfg, "cdv", ht=64, wd=96, device="cpu")
+
+
+@pytest.mark.parametrize("preset", ["default_cdvslam.yaml", "default_cdvslam++.yaml"])
+def test_published_cdvslam_presets_build_on_the_cpu(preset):
+    """Both set CLASSIC_LOOP_CLOSURE and LOOP_CLOSURE; the ++ preset's
+    heads are seeded random ones (the checkpoints are not in the repo)."""
+    cfg = get_cfg().merge_from_file(Path(__file__).resolve().parents[1] / "config" / preset)
+    assert cfg.CLASSIC_LOOP_CLOSURE and cfg.LOOP_CLOSURE
+    if cfg.SEG_HEAD:
+        cfg.SEG_HEAD, cfg.DEPTH_HEAD = "random", "random"
+    slam = SLAM(cfg, "cdv", ht=64, wd=96, device="cpu")
+    assert slam.long_term_lc is not None
 
 
 def test_cdvo_pp_preset_with_random_heads_builds_on_the_cpu():

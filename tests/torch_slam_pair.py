@@ -16,12 +16,17 @@ multiplication, which moves the upper-left context gather by one token
 for about half the patches). With seg or depth heads
 the port gets the JAX SLAM's head weights through the ``models.convert``
 head functions, and under SCORE the JAX SLAM's Gumbel uniforms through
-its ``score_noise`` hook, drawn under ``jax.jit`` the same way.
+its ``score_noise`` hook, drawn under ``jax.jit`` the same way. With the
+classical loop closure the JAX backend's Sim3 PGO is patched to solve in
+float64, as the port's does (``pgo_in_float64``); ``run_pair`` also takes
+rendered ``images`` of another size and their ``intrinsics``.
 """
 import jax
 import numpy as np
 import torch
 
+import cdvslam_tpu.loop.long_term as jax_long_term
+from cdvslam_tpu.ba import pgo as jax_pgo
 from cdvslam_tpu.config import get_cfg as jax_get_cfg
 from cdvslam_tpu.models.patchifier import select_random_grid as jax_select_random_grid
 from cdvslam_tpu.slam import SLAM as JaxSLAM
@@ -55,10 +60,10 @@ def _cfg(make, keyframe_thresh, motion_probe_thr, overrides=None):
     return cfg
 
 
-def jax_patch_sampler(network="cdv", strategy="RANDOM_GRID", M=M):
-    """The JAX SLAM's patch draws of M patches per frame, for the port's
-    ``patch_sampler`` hook: the RANDOM_GRID centres (CDV), or (DPVO) the
-    integer candidates of RANDOM (M) or GRADIENT_BIAS (3M), and the
+def jax_patch_sampler(network="cdv", strategy="RANDOM_GRID", M=M, H=H, W=W):
+    """The JAX SLAM's patch draws of M patches per frame at H x W, for the
+    port's ``patch_sampler`` hook: the RANDOM_GRID centres (CDV), or (DPVO)
+    the integer candidates of RANDOM (M) or GRADIENT_BIAS (3M), and the
     pre-init depths."""
     hi, wi = -(-H // 14), -(-W // 14)
     K = 3 * M if strategy == "GRADIENT_BIAS" else M
@@ -82,7 +87,7 @@ def jax_patch_sampler(network="cdv", strategy="RANDOM_GRID", M=M):
     return sampler
 
 
-def jax_score_noise():
+def jax_score_noise(H=H, W=W):
     """The JAX SLAM's SCORE uniforms, for the port's ``score_noise`` hook."""
     hi, wi = -(-H // 14), -(-W // 14)
 
@@ -95,15 +100,16 @@ def jax_score_noise():
 
 
 def port_slam(params, keyframe_thresh=None, motion_probe_thr=-1.0, dtype=None,
-              overrides=None, heads=None, network="cdv"):
+              overrides=None, heads=None, network="cdv", size=(H, W)):
     """The port's SLAM on the CPU with the flax ``params``, the JAX draws,
-    and ``heads``: the JAX SLAM whose seg and depth head weights it takes."""
+    and ``heads``: the JAX SLAM whose seg and depth head weights it takes;
+    ``size``: (ht, wd) of the frames."""
     cfg = _cfg(get_cfg, keyframe_thresh, motion_probe_thr, overrides)
     state = load_flax_params(params) if network == "cdv" else vonet_state(params)
-    ts = SLAM(cfg, network, ht=H, wd=W, device="cpu", state_dict=state,
+    ts = SLAM(cfg, network, ht=size[0], wd=size[1], device="cpu", state_dict=state,
               patch_sampler=jax_patch_sampler(network, cfg.CENTROID_SEL_STRAT,
-                                              cfg.PATCHES_PER_FRAME), dtype=dtype,
-              score_noise=jax_score_noise())
+                                              cfg.PATCHES_PER_FRAME, *size), dtype=dtype,
+              score_noise=jax_score_noise(*size))
     if ts.seg_head is not None:
         ts.seg_head.load_state_dict(seg_head_state(_np(heads.seg_params)))
     if ts.depth_head is not None:
@@ -158,23 +164,36 @@ def insert_then_update(monkeypatch, js):
     monkeypatch.setattr(js, "_fused_frame_update", step)
 
 
+def pgo_in_float64(monkeypatch):
+    """Run the JAX classical backend's Sim3 PGO in float64, as the port's
+    runs (ROADMAP Queue 3: in float32 its LM stalls), returning float32 as
+    the unpatched call does."""
+    def run_pgo64(poses, dS, ii, jj, iters=30):
+        with jax.enable_x64(True):
+            safe_i, out = jax_pgo.run_pgo(np.asarray(poses, np.float64),
+                                          np.asarray(dS, np.float64), ii, jj, iters)
+            return safe_i, np.asarray(out, np.float32)
+    monkeypatch.setattr(jax_long_term, "run_pgo", run_pgo64)
+
+
 def frames(n=FRAMES):
     rng = np.random.RandomState(0)
     return [(rng.rand(H, W, 3) * 255).astype(np.uint8) for _ in range(n)]
 
 
-def drive_port(slam, n=FRAMES):
-    """Feed n frames to a port SLAM; returns terminate()'s (poses, tstamps)."""
+def drive_port(slam, n=FRAMES, images=None, intrinsics=INTR):
+    """Feed n frames (``images`` if given, else ``frames(n)``) to a port
+    SLAM; returns terminate()'s (poses, tstamps)."""
     with torch.no_grad():
-        for f, img in enumerate(frames(n)):
-            slam(f, img, INTR)
+        for f, img in enumerate(images if images is not None else frames(n)):
+            slam(f, img, intrinsics)
         return slam.terminate()
 
 
 def run_pair(monkeypatch, keyframe_thresh=None, alloc_slot_first=True,
              motion_probe_thr=-1.0, probes=None, d_head_scale=D_HEAD_SCALE,
              overrides=None, nframes=FRAMES, weights_after_insert=False, edit_jax=None,
-             network="cdv"):
+             network="cdv", images=None, intrinsics=INTR):
     """Run both SLAMs over ``nframes`` random frames and terminate both.
 
     ``alloc_slot_first``: the JAX fused steady-state step builds the
@@ -191,12 +210,17 @@ def run_pair(monkeypatch, keyframe_thresh=None, alloc_slot_first=True,
     ``edit_jax``: called with the JAX SLAM before either side runs (to edit
     its head weights, which the port then takes).
     ``network``: "cdv" or "dpv", on both sides.
+    ``images``, ``intrinsics``: frames to run in place of the random ones
+    (their size sets the SLAMs'), and their intrinsics.
     Returns (jax_slam, port_slam, (jax poses, tstamps), (port poses, tstamps));
     ``jax_slam.params`` holds the weights both sides ran.
     """
     monkeypatch.setenv("BA_ASSEMBLY", "scatter")
+    if images is None:
+        images = frames(nframes)
+    size = images[0].shape[:2]
     js = JaxSLAM(_cfg(jax_get_cfg, keyframe_thresh, motion_probe_thr, overrides), network,
-                 ht=H, wd=W)
+                 ht=size[0], wd=size[1])
     params = jax.tree_util.tree_map(np.asarray, js.params)
     head = params["params"]["update_op"]["heads"]["d"]
     head["kernel"] = head["kernel"] * d_head_scale
@@ -215,7 +239,7 @@ def run_pair(monkeypatch, keyframe_thresh=None, alloc_slot_first=True,
         monkeypatch.setattr(js, "_fused_frame_update", fused_alloc_first)
 
     ts = port_slam(params, keyframe_thresh, motion_probe_thr, overrides=overrides, heads=js,
-                   network=network)
+                   network=network, size=size)
     if probes is not None:
         for side, slam in (("jax", js), ("port", ts)):
             probe = slam.motion_probe
@@ -224,15 +248,15 @@ def run_pair(monkeypatch, keyframe_thresh=None, alloc_slot_first=True,
                 log.append(probe())
                 return log[-1]
             monkeypatch.setattr(slam, "motion_probe", logged)
-    for f, img in enumerate(frames(nframes)):
-        js(f, img, INTR)
+    for f, img in enumerate(images):
+        js(f, img, intrinsics)
     jax_out = js.terminate()
-    return js, ts, jax_out, drive_port(ts, nframes)
+    return js, ts, jax_out, drive_port(ts, images=images, intrinsics=intrinsics)
 
 
 def check_against_float64(monkeypatch, keyframe_thresh, d_head_scale=1.0, overrides=None,
                           nframes=FRAMES, weights_after_insert=False, edit_jax=None,
-                          network="cdv"):
+                          network="cdv", motion_probe_thr=-1.0, images=None, intrinsics=INTR):
     """The JAX and port float32 runs (full-scale delta head unless
     ``d_head_scale`` says otherwise), held to a float64 run of the port
     (networks and geometry) on the same frames.
@@ -246,17 +270,21 @@ def check_against_float64(monkeypatch, keyframe_thresh, d_head_scale=1.0, overri
       reassociation and not a difference in what is computed;
     - the two float32 runs agree within 3e-3 and each lies within 5e-3 of
       the float64 run.
+    ``motion_probe_thr``, ``images`` and ``intrinsics`` as in ``run_pair``.
     Returns (jax slam, port slam, float64 port slam, the three distances
     (jax-port, jax-f64, port-f64)).
     """
+    if images is None:
+        images = frames(nframes)
     js, ts, (jp, jt), (tp, tt) = run_pair(monkeypatch, keyframe_thresh=keyframe_thresh,
                                           d_head_scale=d_head_scale, overrides=overrides,
                                           nframes=nframes, edit_jax=edit_jax,
                                           weights_after_insert=weights_after_insert,
-                                          network=network)
-    ws = port_slam(js.params, keyframe_thresh, dtype=torch.float64, overrides=overrides,
-                   heads=js, network=network)
-    wp, wt = drive_port(ws, nframes)
+                                          network=network, motion_probe_thr=motion_probe_thr,
+                                          images=images, intrinsics=intrinsics)
+    ws = port_slam(js.params, keyframe_thresh, motion_probe_thr, dtype=torch.float64,
+                   overrides=overrides, heads=js, network=network, size=images[0].shape[:2])
+    wp, wt = drive_port(ws, images=images, intrinsics=intrinsics)
     assert wp.dtype == np.float64 and wp.shape == (nframes, 7)
     for key in ("keyframe_removals", "updates", "loop_edges", "global_ba"):
         assert js.stats[key] == ts.stats[key] == ws.stats[key], key
