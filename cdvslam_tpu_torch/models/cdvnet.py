@@ -6,11 +6,13 @@ context features are DINOv2 ViT-S/14 tokens of the last tapped block
 linear-attention variant with learnable-Fourier rotary encodings.
 
 The module tree follows the reference's state dict: ``patchify.dino.*``,
-``patchify.xfeat.*``, ``update.*`` and ``posenc.Wr``. The score head (``compute_score``) and
-the DINO adapter (``dino_adapt``) are not ported: neither the JAX runtime
-nor ``train_cdvo.py`` builds them, and asking for one raises. ``net.update(...)``
-and ``net.posenc(...)`` call those submodules, as the JAX package's
-``CDVNet.update`` and ``CDVNet.posenc`` methods do.
+``patchify.xfeat.*``, ``update.*`` and ``posenc.Wr``, and with
+``compute_score`` the score head ``patchify.score.*`` (Linear, ReLU,
+Linear, sigmoid over the normalized tokens), with ``dino_adapt`` the
+bias-free ``patchify.dino_adapter`` on the gathered context vectors.
+Neither the SLAM runtime nor the trainer builds those two, as in the JAX
+package. ``net.update(...)`` and ``net.posenc(...)`` call those submodules,
+as the JAX package's ``CDVNet.update`` and ``CDVNet.posenc`` methods do.
 """
 from __future__ import annotations
 
@@ -27,10 +29,15 @@ SCALEI = 14
 
 
 class Patchify(nn.Module):
-    def __init__(self):
+    def __init__(self, compute_score: bool = False, dino_adapt: bool = False):
         super().__init__()
         self.dino = DinoVisionTransformer()
         self.xfeat = XFeat()
+        if compute_score:
+            self.score = nn.Sequential(nn.Linear(DIMI, DIMI // 3), nn.ReLU(),
+                                       nn.Linear(DIMI // 3, 1), nn.Sigmoid())
+        if dino_adapt:
+            self.dino_adapter = nn.Linear(DIMI, DIMI, bias=False)
 
 
 class CDVNet(nn.Module):
@@ -41,11 +48,9 @@ class CDVNet(nn.Module):
 
     def __init__(self, compute_score: bool = False, dino_adapt: bool = False):
         super().__init__()
-        if compute_score or dino_adapt:
-            raise NotImplementedError(
-                "CDVNet(compute_score=True) and CDVNet(dino_adapt=True) are not ported: "
-                "neither the SLAM runtime nor train_cdvo.py's rollout builds them")
-        self.patchify = Patchify()
+        self.compute_score = compute_score
+        self.dino_adapt = dino_adapt
+        self.patchify = Patchify(compute_score, dino_adapt)
         self.update = UpdateCDV(self.P)
         self.posenc = LearnableFourierPositionalEncoding(2, DIMI // 8)
 
@@ -63,7 +68,8 @@ class CDVNet(nn.Module):
         """Context tokens: pad to a multiple of 14, DINOv2 taps, final norm
         of the last tap -> token map (N, 384, h, w) scaled by 1/4. Also
         returns the normalized tokens (N, h*w, 384), the raw last-layer
-        tokens and cls, and no score map."""
+        tokens and cls, and the score map (N, h, w) (None without
+        ``compute_score``)."""
         return self.features_i_taps(images)[:5]
 
     def features_i_taps(self, images):
@@ -77,9 +83,13 @@ class CDVNet(nn.Module):
         tokens_norm = self.patchify.dino.norm(last)[:, 1:]
         h, w = Hp // SCALEI, Wp // SCALEI
         tmap = tokens_norm.reshape(N, h, w, DIMI).permute(0, 3, 1, 2) / 4.0
+        score_map = None
+        if self.compute_score:
+            score_map = self.patchify.score(tokens_norm).reshape(N, h, w)
         tap_pairs = [(t[:, 1:].reshape(N, h, w, DIMI), t[:, 0]) for t in taps]
-        return tmap, tokens_norm, last[:, 1:], last[:, 0], None, tap_pairs
+        return tmap, tokens_norm, last[:, 1:], last[:, 0], score_map, tap_pairs
 
     def adapt(self, ictx):
-        """The default network has no DINO adapter."""
-        return ictx
+        """The DINO adapter on gathered context vectors (identity without
+        ``dino_adapt``)."""
+        return self.patchify.dino_adapter(ictx) if self.dino_adapt else ictx

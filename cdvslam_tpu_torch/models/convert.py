@@ -14,6 +14,10 @@ Conventions: Dense kernel (in, out) -> Linear weight (out, in); Conv
 kernel (kh, kw, in, out) -> (out, in, kh, kw); LayerNorm scale -> weight;
 BatchNorm mean / var -> running_mean / running_var; ConvTranspose kernel
 (kh, kw, in, out) -> (in, out, kh, kw) flipped in both spatial axes.
+
+``load_torch_checkpoint(path, version)`` reads a reference ``.pth``: the
+port's modules carry the reference's names, so it only strips
+``module.``, drops ``update.lmbda`` and checks the keys.
 """
 from __future__ import annotations
 
@@ -241,3 +245,35 @@ def dpt_head_state(variables) -> dict:
     for k in (0, 2, 4):
         _conv(sd, f"conv_depth.head.{k}", p[f"head{k}"])
     return sd
+
+
+# parts of a reference checkpoint that the SLAM runtime's CDVNet does not
+# build (as the JAX runtime does not)
+_SET_ASIDE = ("patchify.score.", "patchify.dino_adapter.")
+
+
+def load_torch_checkpoint(path, version="cdv"):
+    """A reference ``.pth`` -> (state dict, set aside): the state dict of
+    ``CDVNet()`` ("cdv") or ``VONet()`` ("dpv"), and the score head's and
+    DINO adapter's entries, which a ``CDVNet(compute_score=True,
+    dino_adapt=True)`` also takes. ``module.`` prefixes are stripped and
+    ``update.lmbda`` dropped, as the JAX package's loader does; a key the
+    network does not hold, a key it lacks or a shape that differs raises.
+    Under "dpv" the weights load by their reference names (the JAX
+    converter's gated-residual swap is not reproduced)."""
+    from .cdvnet import CDVNet
+    from .vonet import VONet
+
+    sd = torch.load(path, map_location="cpu")
+    sd = {k.replace("module.", ""): v for k, v in sd.items() if "update.lmbda" not in k}
+    aside = {}
+    if version == "cdv":
+        aside = {k: sd.pop(k) for k in list(sd) if k.startswith(_SET_ASIDE)}
+    with torch.device("meta"):
+        ref = (CDVNet() if version == "cdv" else VONet()).state_dict()
+    missing, unknown = sorted(ref.keys() - sd.keys()), sorted(sd.keys() - ref.keys())
+    shapes = sorted(k for k in ref.keys() & sd.keys() if ref[k].shape != sd[k].shape)
+    if missing or unknown or shapes:
+        raise RuntimeError(f"{path} does not fit the {version} network: missing {missing}, "
+                           f"unknown {unknown}, other shapes {shapes}")
+    return sd, aside

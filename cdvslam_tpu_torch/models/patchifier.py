@@ -74,18 +74,19 @@ def select_gradient_bias(x, y, images, M):
     return select_random(torch.gather(x, 1, idx), torch.gather(y, 1, idx))
 
 
-def extract_patches(fmap, imap, disps, coords, P=3):
+def extract_patches(fmap, imap, images, disps, coords, P=3):
     """The DPVO patch gathers at integer-valued centres coords (N, M, 2):
     gmap (N, M, Cf, P, P) bilinear from fmap (N, Cf, Hf, Wf), the context
-    vector (N, M, Ci) at the upper-left tap of imap (N, Ci, Hf, Wf), and
-    the (x, y, inverse depth) patches (N, M, 3, P, P) from disps
-    (N, Hf, Wf), all in the inputs' dtype. The JAX package also gathers
-    the patch colours, which only its viewer reads."""
+    vector (N, M, Ci) at the upper-left tap of imap (N, Ci, Hf, Wf), the
+    patch colours (N, M, 3) bilinear from images (N, H, W, 3) at
+    4 (coords + 0.5), and the (x, y, inverse depth) patches
+    (N, M, 3, P, P) from disps (N, Hf, Wf), all in the inputs' dtype."""
     ictx = patchify(imap, coords, 0, mode="upperleft")[..., 0, 0]
     gmap = patchify(fmap, coords, P // 2, mode="bilinear")
+    clr = patchify(images.permute(0, 3, 1, 2), 4 * (coords + 0.5), 0, mode="bilinear")[..., 0, 0]
     grid = coords_grid_with_index(disps[None])[0]
     patches = patchify(grid, coords, P // 2, mode="bilinear")
-    return gmap, ictx, patches
+    return gmap, ictx, clr, patches
 
 
 def select_random_grid(generator: torch.Generator, n, M, hi, wi, P, scale_f2i,

@@ -32,7 +32,14 @@ triangulation, a Sim3 PGO) indexes every frame and tries a closure after
 each update; a backend that cannot be built raises. ``prefetch(image)``
 starts a frame's upload to the device ahead of its ``__call__``.
 
-The viewer is outside the port and raises ``NotImplementedError``.
+Each frame also gathers its patches' colours into ``pg.colors_dev``
+(converted to uint8 RGB in ``pg.colors_`` by ``terminate()``), and
+``points()`` gives the patch-centre point cloud, which the writers of
+``viz.plot`` and the viewers read. ``viz="snapshot"`` attaches the
+headless ``viz.viewer.SnapshotViewer``, any other true ``viz`` the
+browser viewer ``viz.web_viewer.WebViewer``; a viewer that cannot start
+raises. ``enable_timing`` times the sections "patch", "keyframe" and
+"update" into ``utils.timer.ALL_TIMES`` (CUDA events on the card).
 """
 from __future__ import annotations
 
@@ -44,7 +51,8 @@ import torch
 
 from ..ba.global_ba import build_global_indices, global_ba_solve
 from ..config import get_cfg
-from ..lie import se3_identity, se3_inv, se3_mul
+from ..geom import point_cloud
+from ..lie import SE3, se3_identity, se3_inv, se3_mul
 from ..loop.long_term import LongTermLoopClosure
 from ..loop.proximity import edges_loop
 from ..models import CDVNet, VONet, build_update_aux
@@ -56,17 +64,16 @@ from ..models.patchifier import (
     select_gradient_bias, select_random, select_random_grid, select_score,
 )
 from ..ops.patchify import patchify
+from ..utils.timer import Timer
 from .kernels import (
     EdgeIndex, dynamic_class_weight, motion_extrapolate, scale_adjustment, update_body,
 )
 from .state import PatchGraph
 
 
-def _unsupported(cfg, network, viz):
+def _unsupported(cfg, network):
     if network not in ("cdv", "dpv"):
         return f"network={network!r} (the port runs 'cdv' and 'dpv')"
-    if viz:
-        return "viz"
     return None
 
 
@@ -109,7 +116,7 @@ def _alloc_slot(table, n, cap):
 class SLAM:
     def __init__(self, cfg=None, network="cdv", ht=480, wd=640, viz=False,
                  seed=0, device=None, state_dict=None, patch_sampler=None,
-                 dtype=None, score_noise=None):
+                 dtype=None, score_noise=None, viewer_port=8642):
         """``network``: "cdv" (CDVNet) or "dpv" (DPVO's VONet).
         ``state_dict``: the network's weights (e.g. ``models.convert.
         load_flax_params`` or ``vonet_state``); random weights from
@@ -123,6 +130,7 @@ class SLAM:
         GRADIENT_BIAS, and RANDOM for anything else.
         ``score_noise(counter) -> (hi*wi,) uniforms in [1e-12, 1)``
         replaces the seeded draw of SCORE's Gumbel noise.
+        ``viewer_port``: the web viewer's loopback port (0 takes a free one).
         ``dtype``: one float type for the networks and the geometry, on the
         CPU only (float64 gives a high-precision run to hold float32 runs
         against); None: bfloat16 networks under MIXED_PRECISION, else
@@ -135,7 +143,7 @@ class SLAM:
         needs the seg head (``ValueError`` without it). Under "dpv" a head
         or FILTER_DYNAMIC_CLASS raises ``ValueError``."""
         self.cfg = cfg if cfg is not None else get_cfg()
-        why = _unsupported(self.cfg, network, viz)
+        why = _unsupported(self.cfg, network)
         if why is not None:
             raise NotImplementedError(f"not in the ported slice: {why}")
         if ht % 16 or wd % 16:
@@ -146,6 +154,7 @@ class SLAM:
         self.network = network
         self.ht, self.wd = ht, wd
         self.is_initialized = False
+        self.enable_timing = False
 
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
@@ -192,6 +201,15 @@ class SLAM:
         # the port raises (a missing cv2, a failed build of the library)
         self.long_term_lc = (LongTermLoopClosure(self.cfg, self)
                              if self.cfg.CLASSIC_LOOP_CLOSURE else None)
+        # the JAX package falls back to snapshots when the web viewer
+        # fails to start; the port raises
+        self.viewer = None
+        if viz == "snapshot":
+            from ..viz.viewer import SnapshotViewer
+            self.viewer = SnapshotViewer(self)
+        elif viz:
+            from ..viz.web_viewer import WebViewer
+            self.viewer = WebViewer(self, port=viewer_port)
 
     def _setup_heads(self):
         """The seg and depth heads, in the geometry's type on the device:
@@ -256,8 +274,10 @@ class SLAM:
     def _patches_cdv(self, img, cand, n, counter):
         """CDVNet's features and patches of one frame (img (H, W, 3) float on
         the device, cand the sampler's centres): the fmap (1, 24, h, w), the
-        context rows (1, M, 384), gmap (1, M, 24, P, P) and the patch row
-        (M, 3, P, P); writes the seg and score rows of frame row n."""
+        context rows (1, M, 384), gmap (1, M, 24, P, P), the patch row
+        (M, 3, P, P) and the patch colours (1, M, 3) bilinear from the
+        network's input image at full resolution; writes the seg and score
+        rows of frame row n."""
         cfg, pg, M, P = self.cfg, self.pg, self.M, self.P
         dev, gd = self.device, self.gdtype
         image_f32 = (img / 255.0)[None]
@@ -284,6 +304,8 @@ class SLAM:
         if self.seg_head is not None:
             pg.seg_[n] = self.seg_head.seg_class((ictx[0] * 4.0).to(gd))
         gmap = patchify(fmap, coords, P // 2, mode="bilinear")
+        clr = patchify(image_f32.permute(0, 3, 1, 2), 4 * (coords + 0.5), 0,
+                       mode="bilinear")[..., 0, 0]
         if self.depth_head is not None:
             if self.depth_is_dpt:
                 dm = self.depth_head([(t.to(gd), c.to(gd)) for t, c in taps])[:, 0]
@@ -297,7 +319,7 @@ class SLAM:
             disps = torch.ones((1, hf, wf), dtype=gd, device=dev)
         grid = coords_grid_with_index(disps[None])[0]
         patch_row = patchify(grid, coords, P // 2, mode="bilinear")[0]
-        return fmap, ictx, gmap, patch_row
+        return fmap, ictx, gmap, patch_row, clr
 
     def _patches_dpv(self, img, cand):
         """VONet's features and patches of one frame, as ``_patches_cdv``
@@ -313,24 +335,26 @@ class SLAM:
         else:
             coords = cand.reshape(1, M, 2)
         disps = torch.ones((1, *fmap.shape[2:]), dtype=fmap.dtype, device=self.device)
-        gmap, ictx, patches = extract_patches(fmap, imap, disps, coords, P)
-        return fmap, ictx, gmap, patches[0].to(self.gdtype)
+        gmap, ictx, clr, patches = extract_patches(fmap, imap, image, disps, coords, P)
+        return fmap, ictx, gmap, patches[0].to(self.gdtype), clr
 
     def prefetch(self, image):
-        """Start the upload of a future frame: a copy into pinned host
-        memory, then a non-blocking copy to the device on an upload stream.
-        Pass the same array to ``__call__`` later. At most 4 uploads are
-        kept, keyed by ``id(image)`` (each entry holds the array, so its id
-        is not reused while it waits); on the CPU it is a plain copy."""
+        """Start the upload of a future frame: a copy to the device on an
+        upload stream, which waits only for that copy, where the plain call's
+        copy waits for all the frame work queued before it. CUDA stages
+        the pageable array itself: a copy into pinned memory first costs
+        the host more than the whole plain upload. Pass the same array
+        to ``__call__`` later. At most 4 uploads are kept, keyed by
+        ``id(image)`` (each entry holds the array, so its id is not reused
+        while it waits); on the CPU it is a plain copy."""
         host = torch.from_numpy(np.asarray(image))
         if self.device.type != "cuda":
             frame, ready = host.clone(), None
         else:
             if self._upload_stream is None:
                 self._upload_stream = torch.cuda.Stream(self.device)
-            pinned = host.pin_memory()
             with torch.cuda.stream(self._upload_stream):
-                frame = pinned.to(self.device, non_blocking=True)
+                frame = host.to(self.device, non_blocking=True)
                 ready = torch.cuda.Event()
                 ready.record()
         self._prefetched[id(image)] = (image, frame, ready)
@@ -360,9 +384,10 @@ class SLAM:
         cand = torch.as_tensor(np.array(cand, np.float32), device=dev).reshape(-1, 2)
         drand = torch.as_tensor(np.array(drand, np.float32), device=dev).reshape(M)
         if self.network == "dpv":
-            fmap, ictx, gmap, patch_row = self._patches_dpv(img, cand)
+            fmap, ictx, gmap, patch_row, clr = self._patches_dpv(img, cand)
         else:
-            fmap, ictx, gmap, patch_row = self._patches_cdv(img, cand, n, counter)
+            fmap, ictx, gmap, patch_row, clr = self._patches_cdv(img, cand, n, counter)
+        pg.colors_dev[n] = clr[0]
 
         pg.intrinsics_[n] = torch.as_tensor(
             np.asarray(intrinsics, np.float64) / self.RES, dtype=self.gdtype)
@@ -486,6 +511,7 @@ class SLAM:
         pg.poses_ = poses
         pg.patches_[k0:k0 + patches_win.shape[0]] = patches_win    # in place
         pg.net = net
+        pg.weight = weight
         if pg.keep_targets:
             pg.tw = torch.cat([target, weight], 1)
         if long_range:
@@ -592,6 +618,7 @@ class SLAM:
         pg.intrinsics_[k:n - 1] = pg.intrinsics_[k + 1:n].clone()
         pg.patches_[k * M:(n - 1) * M] = pg.patches_[(k + 1) * M:n * M].clone()
         pg.seg_[k:n - 1] = pg.seg_[k + 1:n].clone()
+        pg.colors_dev[k:n - 1] = pg.colors_dev[k + 1:n].clone()
         pg.scale_[k:n - 1] = pg.scale_[k + 1:n].clone()
         pg.score_[k * M:(n - 1) * M] = pg.score_[(k + 1) * M:n * M].clone()
         pg.n -= 1
@@ -614,10 +641,11 @@ class SLAM:
         if self.is_initialized:
             # steady state: apply the keyframe decision measured two frames
             # ago, insert the frame, run one update, queue this decision
-            if len(self._kf_queue) >= 2:
-                self._kf_apply(self._decide_row(*self._kf_queue.pop(0)))
-            else:
-                self._kf_apply(None)
+            with self._timer("keyframe"):
+                if len(self._kf_queue) >= 2:
+                    self._kf_apply(self._decide_row(*self._kf_queue.pop(0)))
+                else:
+                    self._kf_apply(None)
             n = pg.n
             if self.long_term_lc is not None:
                 self.long_term_lc(image, n)
@@ -629,12 +657,15 @@ class SLAM:
             pg.m += self.M
             self._add_loop_edges()
             self._append_factors()
-            self._insert_frame(image, n, fac, True, intrinsics, pg.counter - 1)
-            mm = self.update()
+            with self._timer("patch"):
+                self._insert_frame(image, n, fac, True, intrinsics, pg.counter - 1)
+            with self._timer("update"):
+                mm = self.update()
             if pg.n - cfg.KEYFRAME_INDEX >= 1:
                 self._kf_queue.append(
                     (int(pg.tstamps_[pg.n - cfg.KEYFRAME_INDEX]), mm))
             self._attempt_loop_closure()
+            self._show(image)
             return "Is keyframe"
 
         n = pg.n
@@ -642,8 +673,9 @@ class SLAM:
             self.long_term_lc(image, n)
         self.tlist.append(tstamp)
         pg.tstamps_[n] = pg.counter
-        self._insert_frame(image, n, self._motion_fac(n), False, intrinsics,
-                           pg.counter)
+        with self._timer("patch"):
+            self._insert_frame(image, n, self._motion_fac(n), False, intrinsics,
+                               pg.counter)
         pg.counter += 1
         if n > 0 and cfg.MOTION_PROBE_THR >= 0:
             if self.motion_probe() < cfg.MOTION_PROBE_THR:
@@ -659,7 +691,16 @@ class SLAM:
             for _ in range(12):
                 self.update()
             self._attempt_loop_closure()
+        self._show(image)
         return "Is keyframe"
+
+    def _timer(self, name):
+        return Timer(name, enabled=self.enable_timing, device=self.device)
+
+    def _show(self, image):
+        """Hand a kept frame to the viewer."""
+        if self.viewer is not None:
+            self.viewer.update_image(image)
 
     def _attempt_loop_closure(self):
         """The classical backend's closure attempt for the newest frame and
@@ -676,11 +717,14 @@ class SLAM:
         loop closure), run 12 updates (each followed by a global BA while
         loop edges are active), and return the (F, 7) camera-to-world poses
         of every frame (removed frames interpolated through the delta
-        chain) and their timestamps."""
+        chain) and their timestamps. It also converts the patch colours to
+        uint8 RGB in ``pg.colors_`` and joins the viewer."""
         pg = self.pg
         if not self.is_initialized:
             warn(f"SLAM terminates without initialization! Frame count: {pg.counter}")
             poses = np.tile(np.array([0, 0, 0, 0, 0, 0, 1.0]), (pg.counter, 1))
+            if self.viewer is not None:
+                self.viewer.join()
             return poses, np.array(self.tlist, np.float64)
         while self._kf_queue:
             self._kf_apply(self._decide_row(*self._kf_queue.pop(0)))
@@ -705,6 +749,10 @@ class SLAM:
             return traj[t]
 
         poses = torch.stack([get_pose(t) for t in range(pg.counter)])
+        c = pg.colors_dev.cpu().numpy()
+        pg.colors_[:] = np.clip((c[:, :, [2, 1, 0]] + 0.5) * (255.0 / 2), 0, 255).astype(np.uint8)
+        if self.viewer is not None:
+            self.viewer.join()
         return se3_inv(poses).numpy(), np.array(self.tlist, np.float64)
 
     @property
@@ -715,3 +763,11 @@ class SLAM:
     def m(self):
         return self.pg.m
 
+    @torch.no_grad()
+    def points(self):
+        """(m, 3) numpy world coordinates of the kept patches' centres."""
+        pg, P = self.pg, self.P
+        ix = torch.arange(pg.m, device=self.device) // self.M
+        pts = point_cloud(SE3(pg.poses_[None]), pg.patches_[None, :pg.m], pg.intrinsics_[None],
+                          ix)[0, :, P // 2, P // 2]
+        return (pts[:, :3] / pts[:, 3:]).cpu().numpy()

@@ -40,6 +40,10 @@ class PatchGraph:
         # inverse depth of the frame's new patches) and per-patch selection
         # score; the SLAM writes each only where its head or strategy is on
         self.seg_ = torch.zeros((N, M), dtype=torch.uint8, device=device)
+        # per-patch colours: the network input's value at the patch centre
+        # (device), and uint8 RGB on the host, filled by terminate()
+        self.colors_dev = torch.zeros((N, M, 3), **fg)
+        self.colors_ = np.zeros((N, M, 3), np.uint8)
         self.scale_ = torch.zeros(N, **fg)
         self.score_ = torch.ones(N * M, **fg)
         # feature ring buffers, indexed through the runtime's slot tables
@@ -53,6 +57,9 @@ class PatchGraph:
         self.jj = np.zeros(0, np.int64)
         self.kk = np.zeros(0, np.int64)
         self.net = torch.zeros((0, DIM), **ff)
+        # the last update's (E, 2) weights while the edges are those it
+        # ran on (the web viewer reads them), else None
+        self.weight = None
 
         # last update's target and weight per active edge, as (E, 4)
         # [target | weight], and the retired edges (loop closure only)
@@ -82,6 +89,7 @@ class PatchGraph:
         self.ii = np.concatenate([self.ii, np.asarray(ii, np.int64)])
         self.jj = np.concatenate([self.jj, np.asarray(jj, np.int64)])
         self.kk = np.concatenate([self.kk, np.asarray(kk, np.int64)])
+        self.weight = None
         pad = self.E - self.net.shape[0]
         self.net = torch.cat([self.net, self.net.new_zeros((pad, self.DIM))])
         if self.keep_targets:
@@ -93,6 +101,8 @@ class PatchGraph:
         ``keep_targets`` the edges where ``retire`` (a subset of ``gone``)
         move to the inactive store with their post indices."""
         gone = np.asarray(gone, bool)
+        if gone.any():
+            self.weight = None
         if self.keep_targets and retire is not None and retire.any():
             self.ii_inac = np.concatenate([self.ii_inac, ii_post[retire]])
             self.jj_inac = np.concatenate([self.jj_inac, jj_post[retire]])

@@ -15,9 +15,15 @@ Training runs on the card unless ``--device cpu``; ``--compute_dtype
 bfloat16`` runs the networks in bf16 on float32 master weights. With
 ``--world_size N`` the process joins a ``torch.distributed`` group at
 tcp://localhost:``--port`` as ``--rank`` and takes its share of each batch
-(each process runs the same data order). Every ``--eval_every`` steps the
-state is saved under ``--outdir``; the in-training validation of the JAX
-trainer needs the evaluation harness, which is not ported yet.
+(each process runs the same data order). Every ``--eval_every`` steps rank
+0 saves the state under ``--outdir`` and, for CDVNet, runs the in-training
+validation of ``train_cdvo.py``: the TartanAir validation split
+(``eval.tartan.evaluate``, scenes ``--eval_datapath/*/Easy/*``, by default
+``--datapath``) with ``config/default_cdvo.yaml`` and the weights under
+training, on the training device; it is skipped when that path is not a
+directory, a directory without a scene raises before the first step, and
+a validation that fails raises (the JAX trainer prints the error and goes
+on, and runs a randomly initialised network).
 """
 from __future__ import annotations
 
@@ -54,6 +60,8 @@ def parser():
     ap.add_argument("--crop_size", type=int, nargs=2, default=(480, 640))
     ap.add_argument("--batch_per_device", type=int, default=1)
     ap.add_argument("--eval_every", type=int, default=10000)
+    ap.add_argument("--eval_datapath", default=None,
+                    help="the validation's TartanAir root (default: --datapath)")
     ap.add_argument("--outdir", default="checkpoints")
     ap.add_argument("--logdir", default="runs", help="TensorBoard logs")
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
@@ -99,6 +107,9 @@ def main(argv=None, on_step=None):
     schedule = args.schedule.split(",") if args.schedule else None
     if schedule and any(m not in steps for m in schedule):
         raise ValueError(f"--schedule modes must be among {sorted(steps)}")
+    n_steps = len(schedule) if schedule else args.steps
+    if args.network == "cdv" and n_steps >= args.eval_every and ddp.rank() == 0:
+        validation_path(args)      # a validation set without a scene fails now
 
     db = TartanAirDataset(args.datapath, n_frames=args.n_frames,
                           crop_size=tuple(args.crop_size), scene_info_path=args.scene_info)
@@ -106,7 +117,6 @@ def main(argv=None, on_step=None):
     rng = np.random.default_rng(12345 + args.seed)
     records = []
     B = args.world_size * args.batch_per_device
-    n_steps = len(schedule) if schedule else args.steps
     for total, batch in enumerate(db.batches(B, n_steps), start=1):
         if schedule:
             mode = schedule[total - 1]
@@ -133,9 +143,45 @@ def main(argv=None, on_step=None):
             on_step(record, state)
         if total % args.eval_every == 0 and ddp.rank() == 0:
             save_checkpoint(os.path.join(args.outdir, f"{name}_{total:06d}.pt"), state)
-            print(f"[{name}] saved step {total}; in-training validation needs the "
-                  "evaluation harness (ROADMAP M12), which is not ported yet")
+            if args.network == "cdv":
+                validate(args, model, device, logger)
     return records
+
+
+def validation_path(args):
+    """The validation's TartanAir root, or None when it is not a directory
+    (the validation is then skipped, as in the JAX trainer); a directory
+    with no scene under ``*/Easy/*`` raises."""
+    from ..eval import tartan
+
+    datapath = args.eval_datapath or args.datapath
+    if not os.path.isdir(datapath):
+        return None
+    if not tartan.validation_scenes(datapath):
+        raise FileNotFoundError(
+            f"no validation scene under {datapath}/*/Easy/* (the training layout is "
+            "scene/scene/Easy/P: pass --eval_datapath ROOT/scene)")
+    return datapath
+
+
+def validate(args, model, device, logger):
+    """The in-training validation (reference train_cdvo.py:219-224): the
+    TartanAir validation split with ``config/default_cdvo.yaml`` and the
+    model's current weights; the summary goes to the logger and is
+    returned (None when the validation data is not a directory)."""
+    from ..eval import tartan
+    from ..eval.harness import default_parser, load_cfg
+
+    datapath = validation_path(args)
+    if datapath is None:
+        print(f"[validation] skipped: {args.eval_datapath or args.datapath} is not a directory")
+        return None
+    eargs = default_parser("--datapath", datapath).parse_args(
+        ["--config", "config/default_cdvo.yaml", "--device", str(device)])
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    results = tartan.evaluate(datapath, load_cfg(eargs), eargs, trials=1, state_dict=weights)
+    logger.write_dict(results)
+    return results
 
 
 if __name__ == "__main__":

@@ -166,7 +166,8 @@ def rollout_loss(model, cfg: RolloutConfig, images, gt_poses, gt_disps, intrinsi
         patches_gt = patchify(grid, coords, P // 2, mode="bilinear")
     else:
         fmap, imap = ck(lambda im: _call(model, cparams, "features", im), images)
-        gmap, ictx, patches_gt = extract_patches(fmap, imap, gt_disps.to(fmap.dtype), coords, P)
+        gmap, ictx, _, patches_gt = extract_patches(fmap, imap, images, gt_disps.to(fmap.dtype),
+                                                    coords, P)
     hf, wf = fmap.shape[2], fmap.shape[3]
     fmap2 = F.avg_pool2d(fmap.to(torch.promote_types(fmap.dtype, torch.float32)), 4, 4)
     fmap2 = fmap2.to(fmap.dtype)

@@ -38,9 +38,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
   4  the main path: SLAM(get_cfg(), "cdv", 480, 752) with seeded random
      weights and 8 seeded random frames cycled, each prefetched one frame
      ahead (SLAM.prefetch), 60 warm-up frames, one 100-frame timed
-     window, then 10 blocks of 20 frames alternating without and with the
-     prefetch (the prefetched blocks' median time no more than the
-     others' median plus their interquartile range),
+     window, then 10 blocks of 20 frames without and with the prefetch
+     (plain, prefetched, prefetched, plain, ...; the prefetched blocks'
+     median time no more than the others' median plus their
+     interquartile range),
      terminate(); poses finite, corr launched once per update and flash
      attention 12 times per frame; the corr inputs of the last warm-up
      frame's update are captured
@@ -99,15 +100,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
      checkpointed extractor runs again in the backward) and 12 of each
      backward kernel per step, a nonzero gradient in every parameter group
      and every DINO block's qkv; one small step, twice on the card, held
-     leaf by leaf to float32 and float64 CPU runs of the port
+     leaf by leaf to float32 and float64 CPU runs of the port; the float32
+     run also runs the in-training validation once after its last step
+     (``--eval_every 5``, ``--eval_datapath`` the tree's scene directory,
+     its config with MOTION_PROBE_THR -1): one finite ATE for the scene,
+     and the training's peak memory read before it
+  10 the entry points on 120 rendered frames at 480 x 752 (PlaneScene on
+     loop_path, PNGs, a calibration file and a TUM ground truth): ``python
+     -m cdvslam_tpu_torch.demo`` in a subprocess with --save_trajectory
+     --plot --save_ply --save_colmap --timeit (exit 0, the files, finite
+     poses, the timed sections); ``eval.harness.run_sequence`` with
+     default_cdvo.yaml and ``evaluate_against_tum_gt``: the harness's FPS
+     over frames 60-119 beside phase 4's, a finite ATE (random weights: no
+     accuracy figure), K1 once per update and K2 12 times per frame; the
+     reader alone in ms per frame; fast_dpvo.yaml through the harness under
+     "dpv" (finite poses, keyframe removals counted, K1 at C = 128 once per
+     update); and the web viewer (``SLAM(viz=True)``, 40 frames):
+     state.json fetched over loopback with its sizes checked, refresh()
+     timed
 
 Then a kernels line (a list of per-kernel records: launches on the main
 path, max error, kernel / plain / library times and the roofline bound;
 K1's record adds the phase-5 times as ms_main_path and friends, the
 phase-6 times as ms_loop_update and friends, and phase 8's as ms_c128,
 ms_dpvo_update, ms_dpv_loop_update and friends; both records add
-launches_loop_path, launches_classic_path, launches_cdvo_pp_path and
-launches_dpvo_path; the
+launches_loop_path, launches_harness_path (phase 10's harness run),
+launches_classic_path, launches_cdvo_pp_path and launches_dpvo_path; the
 float32 forward and the two backward kernels of K2 have records of their
 own, timed at the training shape, with phase 9's launches, and the bf16
 backward kernels (wgmma kernels apart from the float32 ones) records of
@@ -642,10 +660,12 @@ def phase4(smi):
     """The main path, each frame prefetched one frame ahead
     (``SLAM.prefetch``); returns the launch counts, the corr kernel's inputs
     captured from the last warm-up frame's update, and the FPS. After the
-    timed window, 10 blocks of 20 frames alternate without and with the
-    prefetch: the prefetched blocks' median time must not exceed the
-    others' median by more than the others' own spread (their
-    interquartile range)."""
+    timed window, 10 blocks of 20 frames run without and with the
+    prefetch in the order plain, prefetched, prefetched, plain, ... (the
+    host's clock drifts within a run, and strict turns would always put
+    the prefetched block second): the prefetched blocks' median time must
+    not exceed the others' median by more than the others' own spread
+    (their interquartile range)."""
     import numpy as np
     import torch
     from cdvslam_tpu_torch.config import get_cfg
@@ -697,9 +717,10 @@ def phase4(smi):
     for b in range(BLOCKS):
         first = WARM + WIN + b * BLOCK
         t = time.perf_counter()
-        run(range(first, first + BLOCK), prefetch=b % 2 == 1)
+        prefetched = b % 4 in (1, 2)
+        run(range(first, first + BLOCK), prefetch=prefetched)
         torch.cuda.synchronize()
-        block_s[b % 2 == 1].append(time.perf_counter() - t)
+        block_s[prefetched].append(time.perf_counter() - t)
     poses, tstamps = slam.terminate()
     torch.cuda.synchronize()
     counts = {"corr": corr_cuda.LAUNCHES.count, "dino_flash_attn": flash_attn.LAUNCHES.count}
@@ -1615,6 +1636,256 @@ def _synthetic_tartan(root, nframes=70, ht=480, wd=640):
     return root / "TartanAir.pickle"
 
 
+HARNESS_FRAMES = 120    # rendered frames of phase 10
+
+
+def _render_sequence(root, nframes=HARNESS_FRAMES, ht=480, wd=752):
+    """``nframes`` views of the rendered plane (``PlaneScene`` on
+    ``loop_path(nframes, nframes - 20)``) written as PNGs (BGR, as cv2
+    reads them) with a calibration file and a TUM-format ground truth
+    (t x y z qx qy qz qw of the camera-to-world poses, t the frame index,
+    which is the image reader's timestamp). Returns (image dir, calib
+    path, ground-truth path, frames, seconds)."""
+    import cv2
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+    t = time.perf_counter()
+    scene = PlaneScene(EUROC_INTR, ht, wd)
+    poses = loop_path(nframes, nframes - 20)
+    imagedir = root / "images"
+    imagedir.mkdir(parents=True)
+    frames = []
+    for f, pose in enumerate(poses):
+        img = scene.render(pose)
+        frames.append(img)
+        cv2.imwrite(str(imagedir / f"{f:06d}.png"), img[..., ::-1])
+    calib = root / "calib.txt"
+    calib.write_text(" ".join(repr(float(x)) for x in EUROC_INTR) + "\n")
+    rows = []
+    for f, pose in enumerate(poses):
+        R, tr = _pose_rt(pose)
+        rows.append([f, *(-R.T @ tr), *Rotation.from_matrix(R.T).as_quat()])
+    gt = root / "groundtruth.txt"
+    np.savetxt(gt, np.asarray(rows))
+    return imagedir, calib, gt, frames, time.perf_counter() - t
+
+
+def _harness_run(cfg, imagedir, calib, version="cdv"):
+    """``eval.harness.run_sequence`` on the card with each SLAM call's
+    start time recorded (a subclass of the port's SLAM, put where the
+    harness looks it up); returns (poses, tstamps, slam, call times, wall
+    seconds, launch counts of K1 and K2's bf16 forward)."""
+    import torch
+    import cdvslam_tpu_torch.slam as slam_pkg
+    from cdvslam_tpu_torch.eval.harness import run_sequence
+    from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
+    calls, base = [], slam_pkg.SLAM
+
+    class Timed(base):
+        def __call__(self, *args, **kwargs):
+            calls.append(time.perf_counter())
+            return super().__call__(*args, **kwargs)
+
+    sink = []
+    slam_pkg.SLAM = Timed
+    corr_cuda.LAUNCHES.reset()
+    flash_attn.LAUNCHES.reset()
+    try:
+        t = time.perf_counter()
+        poses, tstamps = run_sequence(cfg, str(imagedir), str(calib), version=version,
+                                      slam_sink=sink)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        slam_pkg.SLAM = base
+    counts = {"corr": corr_cuda.LAUNCHES.count, "dino_flash_attn": flash_attn.LAUNCHES.count}
+    return poses, tstamps, sink[0], calls, wall, counts
+
+
+def _steady_fps(calls):
+    """FPS over frames 60-119 from each SLAM call's start time."""
+    return (len(calls) - 61) / (calls[-1] - calls[60])
+
+
+def _direct_run(cfg, frames, intr):
+    """The same frames from memory, straight into the port's SLAM (no
+    reader, no prefetch): FPS over frames 60-119."""
+    import torch
+    from cdvslam_tpu_torch.slam import SLAM
+    slam = SLAM(cfg, "cdv", *frames[0].shape[:2])
+    calls = []
+    for f, img in enumerate(frames):
+        calls.append(time.perf_counter())
+        slam(f, img, intr)
+    torch.cuda.synchronize()
+    slam.terminate()
+    return _steady_fps(calls)
+
+
+def phase10(smi, fps_main):
+    """The port's entry points on the card, on 120 rendered frames at
+    480 x 752 (``_render_sequence``) with random weights:
+    - the demo, ``python -m cdvslam_tpu_torch.demo`` in a subprocess in the
+      sequence's directory with ``--save_trajectory --plot --save_ply
+      --save_colmap --timeit --opts MOTION_PROBE_THR -1`` (its default
+      stride 2): exit 0, its files written, finite poses, its timed sections;
+    - the harness, ``eval.harness.run_sequence`` (reader thread, BGR -> RGB,
+      SLAM, terminate) with ``config/default_cdvo.yaml`` and
+      MOTION_PROBE_THR=-1, then ``evaluate_against_tum_gt``: FPS over frames
+      60-119 (phase 4's steady window) beside phase 4's, a finite ATE (no
+      accuracy figure: random weights), poses finite, K1 once per update and
+      K2 12 times per frame; the reader alone (decode, crop, queue) in ms per
+      frame; then the same frames from memory straight into the SLAM, twice,
+      and the harness once more (harness, direct, direct, harness), so the
+      reader's share of the gap to phase 4 shows in one call;
+    - ``config/fast_dpvo.yaml`` through the harness under "dpv" (48 patches,
+      KEYFRAME_INDEX 2): poses finite, the keyframe removals counted, K1 at
+      C = 128 once per update, K2 never;
+    - the web viewer, ``SLAM(viz=True)`` on the card for 40 frames:
+      ``state.json`` fetched over loopback with its sizes checked, and
+      ``refresh()`` timed (a host sync; it runs every 5th kept frame).
+    Returns the harness path's launch counts."""
+    import json
+    import os
+    import queue
+    import statistics
+    import subprocess
+    import tempfile
+    import urllib.request
+    import numpy as np
+    import torch
+    from cdvslam_tpu_torch.config import get_cfg
+    from cdvslam_tpu_torch.eval.harness import evaluate_against_tum_gt
+    from cdvslam_tpu_torch.slam import SLAM
+    from cdvslam_tpu_torch.slam.stream import image_stream
+    root = Path(tempfile.mkdtemp(prefix="cdv_phase10_"))
+    imagedir, calib, gt, frames, render_s = _render_sequence(root)
+    ht, wd = frames[0].shape[:2]
+    out, checks = {"phase": 10, "render_s": render_s, "frames": HARNESS_FRAMES}, {}
+
+    # the demo, as a user runs it
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "cdvslam_tpu_torch.demo", "--imagedir",
+                        str(imagedir), "--calib", str(calib), "--name", "phase10",
+                        "--save_trajectory", "--plot", "--save_ply", "--save_colmap", "--timeit",
+                        "--opts", "MOTION_PROBE_THR", "-1"],
+                       cwd=root, env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+                       text=True, timeout=300)
+    out["demo_s"] = time.perf_counter() - t
+    files = {"trajectory": root / "saved_trajectories" / "phase10.txt",
+             "plot": root / "trajectory_plots" / "phase10.pdf", "ply": root / "phase10.ply",
+             "colmap": root / "colmap_saving" / "phase10" / "points3D.txt"}
+    checks["demo_exit_0"] = r.returncode == 0
+    checks["demo_files"] = all(f.is_file() and f.stat().st_size > 0 for f in files.values())
+    if checks["demo_files"]:
+        traj = np.loadtxt(files["trajectory"])
+        checks["demo_poses_finite"] = traj.shape == (HARNESS_FRAMES // 2, 8) and bool(
+            np.isfinite(traj).all())
+    else:
+        checks["demo_poses_finite"] = False
+    out["demo_timeit"] = [line for line in r.stdout.splitlines() if ": median " in line]
+    checks["demo_timeit_sections"] = all(
+        any(line.startswith(f"{s}: ") for line in out["demo_timeit"])
+        for s in ("SLAM", "patch", "update", "keyframe"))
+    if r.returncode != 0:
+        out["demo_stderr_tail"] = r.stderr[-3000:]
+
+    # the reader alone
+    q = queue.Queue()
+    t = time.perf_counter()
+    image_stream(q, str(imagedir), str(calib), 1)
+    out["reader_ms_per_frame"] = (time.perf_counter() - t) * 1e3 / HARNESS_FRAMES
+
+    # the harness
+    cfg = get_cfg().merge_from_file(ROOT / "config" / "default_cdvo.yaml")
+    cfg.MOTION_PROBE_THR = -1.0
+    poses, tstamps, slam, calls, wall, counts = _harness_run(cfg, imagedir, calib)
+    fps = _steady_fps(calls)
+    ate = evaluate_against_tum_gt(poses, tstamps, gt)
+    intr = np.asarray(EUROC_INTR, np.float32)
+    direct = [_direct_run(cfg, frames, intr) for _ in range(2)]
+    again = _steady_fps(_harness_run(cfg, imagedir, calib)[3])
+    out["harness"] = {"fps_frames_60_119": fps, "fps_main_path_phase4": fps_main,
+                      "fps_share_of_phase4": fps / fps_main, "fps_second_run": again,
+                      "fps_direct_same_frames": direct,
+                      "harness_over_direct": (fps + again) / sum(direct), "wall_s": wall,
+                      "fps_wall": HARNESS_FRAMES / wall, "ate_random_weights": ate,
+                      "updates": slam.stats["updates"],
+                      "keyframe_removals": slam.stats["keyframe_removals"],
+                      "launches": counts}
+    checks["harness_poses_finite"] = poses.shape == (HARNESS_FRAMES, 7) and bool(
+        np.isfinite(poses).all())
+    checks["harness_ate_finite"] = bool(np.isfinite(ate))
+    checks["harness_corr_1_per_update"] = counts["corr"] == slam.stats["updates"] > 0
+    checks["harness_attn_12_per_frame"] = counts["dino_flash_attn"] == 12 * HARNESS_FRAMES
+
+    # fast_dpvo.yaml through the harness under "dpv"
+    import cdvslam_tpu_torch.slam.kernels as slam_kernels
+    widths = []
+    wide = slam_kernels.corr_pyramid_cl
+
+    def width_logged(gmap, *args, **kwargs):
+        widths.append(gmap.shape[1])
+        return wide(gmap, *args, **kwargs)
+    fast = get_cfg().merge_from_file(ROOT / "config" / "fast_dpvo.yaml")
+    fast.MOTION_PROBE_THR = -1.0
+    slam_kernels.corr_pyramid_cl = width_logged
+    try:
+        fposes, _, fslam, fcalls, fwall, fcounts = _harness_run(fast, imagedir, calib, "dpv")
+    finally:
+        slam_kernels.corr_pyramid_cl = wide
+    out["fast_dpvo"] = {"keyframe_removals": fslam.stats["keyframe_removals"],
+                        "updates": fslam.stats["updates"], "M": fslam.M,
+                        "fps_frames_60_119": _steady_fps(fcalls),
+                        "launches": fcounts}
+    checks["fast_dpvo_poses_finite"] = fposes.shape == (HARNESS_FRAMES, 7) and bool(
+        np.isfinite(fposes).all())
+    checks["fast_dpvo_corr_c128"] = (fcounts["corr"] == fslam.stats["updates"] == len(widths)
+                                    and set(widths) == {128})
+    checks["fast_dpvo_no_attn"] = fcounts["dino_flash_attn"] == 0
+    checks["fast_dpvo_removed_keyframes"] = fslam.stats["keyframe_removals"] > 0
+
+    # the web viewer on the card
+    vcfg = get_cfg()
+    vcfg.MOTION_PROBE_THR = -1.0
+    vslam = SLAM(vcfg, "cdv", ht, wd, viz=True, viewer_port=0)
+    refresh, timed = vslam.viewer.refresh, []
+
+    def refresh_timed():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        refresh()
+        timed.append((time.perf_counter() - t) * 1e3)
+    vslam.viewer.refresh = refresh_timed
+    for f in range(40):
+        vslam(f, frames[f], intr)
+    url = f"http://127.0.0.1:{vslam.viewer.port}/state.json"
+    state = json.loads(urllib.request.urlopen(url, timeout=10).read())
+    vposes, _ = vslam.terminate()
+    n = state["n"]
+    checks["viewer_state_sizes"] = (
+        n >= 2 and len(state["points"]) % 3 == 0 and len(state["points"]) > 0
+        and len(state["colors"]) == len(state["points"])
+        and len(state["weights"]) == len(state["points"]) // 3
+        and len(state["traj"]) == 3 * n and len(state["frustum"]) == 48
+        and len(state["kf_frustums"]) == 48 * n and bool(state["image"]))
+    checks["viewer_poses_finite"] = bool(np.isfinite(vposes).all())
+    out["viewer"] = {"n": n, "points": len(state["points"]) // 3,
+                     "refresh_ms": timed, "refresh_ms_median": statistics.median(timed),
+                     "refreshes": len(timed)}
+    ok = all(checks.values())
+    out.update({"checks": checks, "card": smi, "ok": ok,
+                "cuts": {"weights": "random (seed 0)",
+                         "data": f"{HARNESS_FRAMES} frames of a rendered textured plane at "
+                                 f"{ht} x {wd} (PlaneScene, loop_path)",
+                         "config": "MOTION_PROBE_THR=-1 (the random network's probe keeps "
+                                   "no frame)"}})
+    emit(out)
+    if not ok:
+        raise SystemExit(f"phase 10: entry-point checks failed: {checks}")
+    return counts
+
+
 GROUPS = {"cdv": ("patchify.dino", "patchify.xfeat", "update", "posenc"),
           "dpv": ("patchify.fnet", "patchify.inet", "update")}
 
@@ -1649,10 +1920,14 @@ def phase9(smi):
     and 12 of each backward kernel per step, none under DPVO; a nonzero
     gradient in every parameter group and in every DINO block's qkv; then
     one small training step (F 4, M 4, 48 x 64) on the card held to the CPU
-    port's float32 and float64 runs (``_train_step_card_vs_cpu``)."""
+    port's float32 and float64 runs (``_train_step_card_vs_cpu``). The
+    float32 run validates once after its fifth step (``train.cli.validate``
+    on the tree's scene, MOTION_PROBE_THR -1): one finite ATE; its peak
+    memory is reported apart from the training's."""
     import tempfile
     import numpy as np
     import torch
+    from cdvslam_tpu_torch.eval import tartan
     from cdvslam_tpu_torch.ops import flash_attn as fa
     from cdvslam_tpu_torch.train import cli
     tmp = Path(tempfile.mkdtemp(prefix="cdv_train_"))
@@ -1662,13 +1937,35 @@ def phase9(smi):
     common = ["--datapath", str(tmp / "TartanAir"), "--scene_info", str(pickle_path),
               "--outdir", str(tmp / "checkpoints"), "--logdir", str(tmp / "runs"),
               "--eval_every", "1000000"]
-    runs = {"f32": ("cdv", ["--schedule", "sparse,sparse,sparse,dense,dense"]),
+    # the float32 run validates once, after its last step, on the tree's
+    # scene: the validation globs --eval_datapath/*/Easy/*, and the
+    # trainer's layout is scene/scene/Easy/P
+    validation = ["--eval_every", "5", "--eval_datapath", str(tmp / "TartanAir" / "office")]
+    runs = {"f32": ("cdv", ["--schedule", "sparse,sparse,sparse,dense,dense", *validation]),
             "bf16": ("cdv", ["--schedule", "sparse,sparse", "--compute_dtype", "bfloat16"]),
             "dpvo": ("dpv", ["--schedule", "sparse"])}
     out, checks = {"phase": 9, "tree_s": tree_s, "runs": {}}, {}
+    validate, evaluate, summaries, peaks = cli.validate, tartan.evaluate, [], []
+
+    def evaluate_random_network(datapath, cfg, eargs, **kwargs):
+        cfg.MOTION_PROBE_THR = -1.0      # the random network's probe keeps no frame
+        return evaluate(datapath, cfg, eargs, **kwargs)
+
+    def validate_logged(*args, **kwargs):
+        # the training's peak so far, then the validation's own
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        summaries.append(validate(*args, **kwargs))
+        out["validation_s"] = time.perf_counter() - t
+        out["validation_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        return summaries[-1]
+    cli.validate, tartan.evaluate = validate_logged, evaluate_random_network
     for run, (network, extra) in runs.items():
         fa.reset_counts()
         torch.cuda.reset_peak_memory_stats()
+        peaks.clear()
         grads = {}
 
         def on_step(record, state, network=network):
@@ -1694,8 +1991,13 @@ def phase9(smi):
         checks[f"{run}_every_dino_qkv_has_a_gradient"] = qkv_ok
         out["runs"][run] = {
             "network": network, "steps": recs, "launches": counts, "expected_launches": expect,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_mem_gb": max(peaks + [torch.cuda.max_memory_allocated()]) / 1e9,
             "grad_groups_nonzero_of_leaves": groups}
+    cli.validate, tartan.evaluate = validate, evaluate
+    out["validation"] = summaries
+    checks["validation_ran_once_on_the_scene"] = (
+        len(summaries) == 1 and summaries[0] is not None
+        and bool(np.isfinite(summaries[0].get("office_Easy_P001", np.nan))))
     out["small_card_vs_cpu"] = _train_step_card_vs_cpu()
     checks["small_card_vs_cpu"] = out["small_card_vs_cpu"]["ok"]
     ok = all(checks.values())
@@ -1964,6 +2266,7 @@ def main():
     dpvo_rec = corr_on_captured("8-update", dpvo_captured)
     dpv_loop_rec = corr_on_captured("8-loop-update", dpv_loop_captured)
     train = phase9(smi)
+    harness_counts = phase10(smi, fps_main)
 
     ops_ms, bytes_ms = attn_rec["bound"]
     kernels = [
@@ -1980,6 +2283,7 @@ def main():
          "bound_ms_main_path": main_rec["bound_ms"],
          "box_share_main_path": main_rec["box_share"],
          "launches_loop_path": lc_counts["corr"],
+         "launches_harness_path": harness_counts["corr"],
          "launches_classic_path": classic_counts["corr"],
          "launches_cdvo_pp_path": pp_counts["corr"],
          "E_loop_update": lc_captured[3].shape[0], "ms_loop_update": loop_rec["ms"],
@@ -2009,6 +2313,7 @@ def main():
          "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
          "library_ms": attn_rec["library_ms"],
          "launches_loop_path": lc_counts["dino_flash_attn"],
+         "launches_harness_path": harness_counts["dino_flash_attn"],
          "launches_classic_path": classic_counts["dino_flash_attn"],
          "launches_cdvo_pp_path": pp_counts["dino_flash_attn"],
          "launches_dpvo_path": dpvo_counts["dino_flash_attn"],

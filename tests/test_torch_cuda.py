@@ -33,7 +33,8 @@ damped BA solves amplify it); the segment sums' backward on the card
 exactly (a gather); the Sim3 PGO at n = 200 on the card against the CPU,
 both solving in float64, 1e-6 per component; the classical backend's
 worker thread (its own stream) against the same close_loop inline, poses
-and depths 1e-6.
+and depths 1e-6; the data-parallel dry run on the card by its own rule
+(``parallel/dryrun.py``).
 """
 from pathlib import Path
 
@@ -517,3 +518,60 @@ def test_classic_worker_thread_matches_inline_on_the_card(card):
         results[sync] = (slam.pg.poses_[:n].clone(), slam.pg.patches_[: n * 8, 2].clone())
     for a, b in zip(results[True], results[False]):
         torch.testing.assert_close(b, a, rtol=0, atol=1e-6)
+
+
+def test_colors_timing_and_viewer_on_the_card(card, monkeypatch):
+    """The entry-point hooks on the card, on the float32 setting of
+    ``test_float32_cdv_slam_on_the_card_matches_the_cpu``: the patch colours
+    (gathered on the card every frame, shifted on removal) within one uint8
+    level of the CPU run's, ``points()`` finite with one row per kept
+    patch, the "patch", "keyframe" and "update" sections timed by CUDA
+    events (``utils.timer``), and the web viewer's ``state.json`` served
+    over loopback from the card's buffers."""
+    import json
+    import urllib.request
+    from cdvslam_tpu_torch.models import CDVNet
+    from cdvslam_tpu_torch.utils.timer import ALL_TIMES
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = get_cfg()
+    cfg.update(PATCHES_PER_FRAME=16, BUFFER_SIZE=32, MOTION_PROBE_THR=-1.0, MIXED_PRECISION=False)
+    torch.manual_seed(3)
+    state = CDVNet().state_dict()
+    rng = np.random.RandomState(0)
+    frames = [(rng.rand(64, 96, 3) * 255).astype(np.uint8) for _ in range(12)]
+    intr = np.array([80.0, 80.0, 48.0, 32.0], np.float32)
+    colors = {}
+    ALL_TIMES.clear()
+    for dev in ("cpu", card):
+        on_card = dev != "cpu"
+        slam = SLAM(cfg, "cdv", ht=64, wd=96, device=dev, seed=3, state_dict=state,
+                    viz=on_card, viewer_port=0)
+        slam.enable_timing = on_card
+        for f, img in enumerate(frames):
+            slam(f, img, intr)
+        if on_card:
+            slam.viewer.refresh()
+            url = f"http://127.0.0.1:{slam.viewer.port}/state.json"
+            served = json.loads(urllib.request.urlopen(url, timeout=10).read())
+            assert served["n"] == slam.n and len(served["points"]) > 0
+        slam.terminate()
+        pts = slam.points()
+        assert pts.shape == (slam.m, 3) and np.isfinite(pts).all()
+        colors[str(dev)] = slam.pg.colors_[: slam.n].astype(int)
+        assert slam.stats["keyframe_removals"] > 0
+    assert np.abs(colors["cpu"] - colors[str(card)]).max() <= 1
+    assert len(ALL_TIMES["patch"]) == len(frames) and len(ALL_TIMES["update"]) > 0
+    assert len(ALL_TIMES["keyframe"]) > 0 and all(t > 0 for t in ALL_TIMES["patch"])
+
+
+def test_dry_run_on_the_card(card, tmp_path):
+    """``python -m cdvslam_tpu_torch.parallel.dryrun 2`` with its default
+    device: two gloo processes sharing the card against two single
+    processes, the dry run's own tolerance (1e-5 of each leaf's max
+    |gradient| and 1e-6 of the loss, plus three times the two single runs'
+    distance, which the card's scatter-adds make nonzero)."""
+    from cdvslam_tpu_torch.parallel import dryrun
+    assert dryrun.run(2, workdir=tmp_path) == 0
+    a = torch.load(tmp_path / "single.pt")
+    assert sum(g.abs().max().item() > 0 for g in a["grads"].values()) > 0.9 * len(a["grads"])

@@ -101,7 +101,9 @@ def test_data_modules_import_nothing_of_the_jax_package():
 
 def test_training_cli_runs_on_the_cpu(tree, tmp_path):
     """The training entry point on the synthetic tree: two sparse CDV steps
-    and one DPVO step at 48 x 64, a checkpoint after the second CDV step."""
+    and one DPVO step at 48 x 64, a checkpoint after the second CDV step.
+    The in-training validation after it is skipped (``--eval_datapath``
+    not a directory); ``test_torch_cli.py`` runs it."""
     import torch
     from cdvslam_tpu_torch.train import cli
     from cdvslam_tpu_torch.train.checkpoint import load_checkpoint
@@ -110,7 +112,7 @@ def test_training_cli_runs_on_the_cpu(tree, tmp_path):
     common = ["--device", "cpu", "--datapath", str(root), "--scene_info",
               str(root / "port.pickle"), "--n_frames", "4", "--iter", "2", "--crop_size",
               "48", "64", "--outdir", str(tmp_path), "--logdir", str(tmp_path / "runs"),
-              "--eval_every", "2"]
+              "--eval_every", "2", "--eval_datapath", str(tmp_path / "no_validation")]
     recs = cli.main(["cdv", "--schedule", "sparse,sparse", "--steps", "200", *common])
     assert [r["mode"] for r in recs] == ["sparse", "sparse"]
     assert all(np.isfinite(r["loss"]) and r["nan_skip"] == 0.0 for r in recs)

@@ -295,7 +295,8 @@ def test_extract_patches_matches_jax():
     ref = jpatch.extract_patches(jnp.asarray(fmap), jnp.asarray(imap), jnp.asarray(img),
                                  jnp.asarray(disps), jnp.asarray(coords.numpy()), P=3)
     out = extract_patches(torch.from_numpy(fmap), torch.from_numpy(imap),
-                          torch.from_numpy(disps), coords, P=3)
-    for o, r in zip(out, (ref[0], ref[1], ref[3])):
+                          torch.from_numpy(img), torch.from_numpy(disps), coords, P=3)
+    assert len(out) == len(ref) == 4
+    for o, r in zip(out, ref):
         assert o.shape == r.shape
         np.testing.assert_array_equal(o.numpy(), np.asarray(r))

@@ -1,8 +1,9 @@
-"""Package rules of the port: no JAX (the training, data and parallel
-modules included), the card by default (SLAM and the training entry point),
-configs outside the ported slice refused, the classical loop closure built
-(and a backend that cannot be built raised), and the heads' set-up rules
-(CDV) and refusal (DPVO)."""
+"""Package rules of the port: no JAX (the training, data, parallel,
+evaluation, viewer and entry-point modules included), the card by default
+(SLAM and the training entry point), configs outside the ported slice
+refused, the viewers and the score head and DINO adapter built, the
+classical loop closure built (and a backend that cannot be built raised),
+and the heads' set-up rules (CDV) and refusal (DPVO)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -42,17 +43,31 @@ def test_port_sources_import_nothing_of_jax_even_lazily():
     pkg = Path(__file__).resolve().parents[1] / "cdvslam_tpu_torch"
     bad = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|orbax|cdvslam_tpu)\b", re.M)
     files = sorted(pkg.rglob("*.py"))
-    assert any(f.parent.name == "train" for f in files) and any(f.parent.name == "parallel"
-                                                                 for f in files)
+    for part in ("train", "parallel", "eval", "viz", "utils"):
+        assert any(f.parent.name == part for f in files), part
+    assert pkg / "demo.py" in files and pkg / "slam" / "stream.py" in files
     offenders = [str(f) for f in files if bad.search(f.read_text())]
     assert not offenders, offenders
 
 
+def test_port_sources_need_no_plotting_library():
+    """matplotlib is not a dependency of the port: the plot and the
+    snapshot viewer write their PDF and PNGs themselves (``viz/plot.py``,
+    ``viz/viewer.py``)."""
+    import re
+    pkg = Path(__file__).resolve().parents[1] / "cdvslam_tpu_torch"
+    bad = re.compile(r"^\s*(from|import)\s+matplotlib\b", re.M)
+    assert not [str(f) for f in pkg.rglob("*.py") if bad.search(f.read_text())]
+
+
 def test_score_head_and_dino_adapter_are_refused():
+    """No longer refused: both build, under the reference's names
+    (``test_torch_checkpoint.py`` holds them to flax)."""
     from cdvslam_tpu_torch.models import CDVNet
-    for kw in ({"compute_score": True}, {"dino_adapt": True}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            CDVNet(**kw)
+    for kw, key in (({"compute_score": True}, "patchify.score.2.weight"),
+                    ({"dino_adapt": True}, "patchify.dino_adapter.weight")):
+        net = CDVNet(**kw)
+        assert key in net.state_dict() and key not in CDVNet().state_dict()
 
 
 def test_training_cli_wants_a_card_unless_told(monkeypatch):
@@ -60,6 +75,13 @@ def test_training_cli_wants_a_card_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["cdv"])
+
+
+def test_dry_run_wants_a_card_unless_told(monkeypatch):
+    from cdvslam_tpu_torch.parallel import dryrun
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["2"])
 
 
 def test_slam_defaults_to_the_card_and_raises_without_one(monkeypatch):
@@ -83,10 +105,67 @@ def _build(change, error=None):
 
 
 @pytest.mark.parametrize("change", [
-    {"viz": True}, {"network": "dpv", "viz": True}, {"network": "vonet"},
+    {"network": "dpvo"}, {"network": "cdvo"}, {"network": "vonet"},
 ])
 def test_configs_outside_the_slice_raise(change):
+    """The viewers are ported (``test_viz_builds_both_viewers``); a network
+    other than "cdv" and "dpv" is still refused."""
     _build(change, NotImplementedError)
+
+
+@pytest.mark.parametrize("network", ["cdv", "dpv"])
+def test_viz_builds_both_viewers(network, tmp_path, monkeypatch):
+    from cdvslam_tpu_torch.viz.viewer import SnapshotViewer
+    from cdvslam_tpu_torch.viz.web_viewer import WebViewer
+    monkeypatch.chdir(tmp_path)
+    snap = _build({"network": network, "viz": "snapshot"})
+    assert isinstance(snap.viewer, SnapshotViewer) and (tmp_path / "viewer_out").is_dir()
+    cfg = get_cfg()
+    web = SLAM(cfg, network, ht=64, wd=96, device="cpu", viz=True, viewer_port=0)
+    assert isinstance(web.viewer, WebViewer) and web.viewer.server.server_address[0] == "127.0.0.1"
+    web.viewer.join()
+
+
+_ENTRY_POINTS = ["cdvslam_tpu_torch.demo", "cdvslam_tpu_torch.eval.euroc",
+                 "cdvslam_tpu_torch.eval.tum", "cdvslam_tpu_torch.eval.tartan",
+                 "cdvslam_tpu_torch.eval.kitti", "cdvslam_tpu_torch.eval.icl_nuim",
+                 "cdvslam_tpu_torch.eval.nuscene", "cdvslam_tpu_torch.train.cli",
+                 "cdvslam_tpu_torch.parallel.dryrun"]
+
+_HELP = """
+import contextlib, io, json, runpy, sys
+out = {}
+for name in sys.argv[1:]:
+    sys.argv = [name, "--help"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            runpy.run_module(name, run_name="__main__")
+        except SystemExit as e:
+            code = e.code
+    out[name] = (code, buf.getvalue())
+bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "cdvslam_tpu"))
+print(json.dumps({"bad": bad, "help": out}))
+"""
+
+
+@pytest.fixture(scope="module")
+def entry_point_help():
+    """Every entry point's ``--help``, in one interpreter."""
+    import json
+    r = subprocess.run([sys.executable, "-c", _HELP, *_ENTRY_POINTS], capture_output=True,
+                       text=True, timeout=180, cwd=Path(__file__).resolve().parents[1])
+    assert r.returncode == 0, r.stderr
+    return json.loads(r.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", _ENTRY_POINTS)
+def test_entry_points_answer_help_without_jax(entry_point_help, name):
+    """``python -m <entry point> --help`` prints its usage and loads no JAX."""
+    assert entry_point_help["bad"] == []
+    code, text = entry_point_help["help"][name]
+    assert code in (0, None)
+    assert "usage:" in text and "--device" in text
 
 
 @pytest.mark.parametrize("change", [
