@@ -43,6 +43,8 @@ raises. ``enable_timing`` times the sections "patch", "keyframe" and
 """
 from __future__ import annotations
 
+import threading
+import time
 from pathlib import Path
 from warnings import warn
 
@@ -196,7 +198,11 @@ class SLAM:
         self.last_global_ba = -1000   # n when loop edges were last added
         self.ran_global_ba = set()    # keyframe counts n that ran a global BA
         self._prefetched = {}         # id(image) -> (image, device frame, upload event)
+        self._prefetch_lock = threading.Lock()
         self._upload_stream = None
+        # a list, when set: _frame_on_device appends (prefetched, start event,
+        # end event, host seconds) per frame on the card (chip_smoke.py phase 4)
+        self.upload_log = None
         # the JAX package warns and runs without a backend it cannot build;
         # the port raises (a missing cv2, a failed build of the library)
         self.long_term_lc = (LongTermLoopClosure(self.cfg, self)
@@ -344,7 +350,8 @@ class SLAM:
         copy waits for all the frame work queued before it. CUDA stages
         the pageable array itself: a copy into pinned memory first costs
         the host more than the whole plain upload. Pass the same array
-        to ``__call__`` later. At most 4 uploads are kept, keyed by
+        to ``__call__`` later; it may be called from another thread than
+        ``__call__`` (a reader thread). At most 4 uploads are kept, keyed by
         ``id(image)`` (each entry holds the array, so its id is not reused
         while it waits); on the CPU it is a plain copy."""
         host = torch.from_numpy(np.asarray(image))
@@ -357,20 +364,31 @@ class SLAM:
                 frame = host.to(self.device, non_blocking=True)
                 ready = torch.cuda.Event()
                 ready.record()
-        self._prefetched[id(image)] = (image, frame, ready)
-        if len(self._prefetched) > 4:
-            self._prefetched.pop(next(iter(self._prefetched)))
+        with self._prefetch_lock:
+            self._prefetched[id(image)] = (image, frame, ready)
+            if len(self._prefetched) > 4:
+                self._prefetched.pop(next(iter(self._prefetched)))
 
     def _frame_on_device(self, image):
         """The frame as a tensor on the device: its prefetched upload (the
         main stream waits on it), else a copy made now."""
-        _, frame, ready = self._prefetched.pop(id(image), (None, None, None))
+        with self._prefetch_lock:
+            _, frame, ready = self._prefetched.pop(id(image), (None, None, None))
+        log = self.upload_log if self.device.type == "cuda" else None
+        if log is not None:
+            t0 = time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
         if frame is None:
-            return torch.as_tensor(np.asarray(image)).to(self.device)
-        if ready is not None:
+            frame = torch.as_tensor(np.asarray(image)).to(self.device)
+        elif ready is not None:
             main = torch.cuda.current_stream(self.device)
             main.wait_event(ready)
             frame.record_stream(main)
+        if log is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            log.append((ready is not None, start, end, time.perf_counter() - t0))
         return frame
 
     def _insert_frame(self, image, n, fac, initialized, intrinsics, counter):

@@ -38,11 +38,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
   4  the main path: SLAM(get_cfg(), "cdv", 480, 752) with seeded random
      weights and 8 seeded random frames cycled, each prefetched one frame
      ahead (SLAM.prefetch), 60 warm-up frames, one 100-frame timed
-     window, then 10 blocks of 20 frames without and with the prefetch
+     window, then 20 blocks of 20 frames without and with the prefetch
      (plain, prefetched, prefetched, plain, ...; the prefetched blocks'
      median time no more than the others' median plus their
-     interquartile range),
-     terminate(); poses finite, corr launched once per update and flash
+     interquartile range), the upload timed over the blocks (device: the
+     plain copy and the wait on a prefetched upload, CUDA events; host:
+     the prefetch() call and the plain upload; the median wait below the
+     median copy), terminate(); poses finite, corr launched once per update and flash
      attention 12 times per frame; the corr inputs of the last warm-up
      frame's update are captured
   4-f32  40 frames of the main path with MIXED_PRECISION=False: FPS, poses
@@ -118,6 +120,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
      update); and the web viewer (``SLAM(viz=True)``, 40 frames):
      state.json fetched over loopback with its sizes checked, refresh()
      timed
+  11 the trained-weights proof (``python -m cdvslam_tpu_torch.train.
+     e2e_proof``, cut to PROOF_STEPS = 20 training steps; its own run is
+     1,500): K2 at the proof's 415 tokens (240 x 320) against plain, the
+     serving call at B 1 by phase 2's rule and the training calls at B 8
+     by phase "2-train"'s, with times; the float32 training on the pool of
+     48 rendered clips (every loss finite, ms per step, peak memory; 24
+     float32 K2 forwards, 12 dQ and 12 dK/dV per step, no bf16 K2 and no
+     K1: the rollout takes the plain corr); the checkpoint round trip
+     through a temporary directory (the weights the SLAM loads equal the
+     trained ones bitwise); the SLAM with the trained and with random
+     weights over the 40 held-out frames at the evaluation's five seeds
+     (the tool's JSON result and every seed's ATEs, all finite, K1 once
+     per update and bf16 K2 12 times per frame); K1 on one update of the
+     trained run (pyramids of 60 x 80 and 15 x 20) against plain by phase
+     1's rule, and timed
+  12 the retrieval-recall harness (``eval.lc_recall``) at per_loop 24,
+     sigma 0 and 5, on the host: the table's rows, recall at sigma 0 and
+     thresh 0.04 above 0
 
 Then a kernels line (a list of per-kernel records: launches on the main
 path, max error, kernel / plain / library times and the roofline bound;
@@ -125,9 +145,12 @@ K1's record adds the phase-5 times as ms_main_path and friends, the
 phase-6 times as ms_loop_update and friends, and phase 8's as ms_c128,
 ms_dpvo_update, ms_dpv_loop_update and friends; both records add
 launches_loop_path, launches_harness_path (phase 10's harness run),
-launches_classic_path, launches_cdvo_pp_path and launches_dpvo_path; the
+launches_classic_path, launches_cdvo_pp_path, launches_dpvo_path and
+launches_proof_slam_runs (phase 11's SLAM runs), and K1's adds phase
+11's update as ms_proof_update, max_abs_err_proof_update and friends; the
 float32 forward and the two backward kernels of K2 have records of their
-own, timed at the training shape, with phase 9's launches, and the bf16
+own, timed at the training shape, with phase 9's launches and phase
+11's (launches_proof_training, ms_proof_shape at B 8, L 415), and the bf16
 backward kernels (wgmma kernels apart from the float32 ones) records of
 their own with the launches of phase 9's bf16 run; the float32 records
 take three TF32 passes as bound_ms and give the FP32-FMA figure as
@@ -370,6 +393,21 @@ def phase1(channels=C, phase=1, seed=1):
     return rec
 
 
+def _k2_serving_case(qkv, h):
+    """The bf16 serving call against its plain version by phase 2's rule
+    (max abs error 2e-2, relative Frobenius 1e-2)."""
+    import torch
+    from cdvslam_tpu_torch.ops import flash_attn
+    got = flash_attn.flash_attention_qkv(qkv, h).float()
+    want = flash_attn.attention_qkv_plain(qkv, h).float()
+    torch.cuda.synchronize()
+    max_abs = (got - want).abs().max().item()
+    rel_fro = ((got - want).norm() / want.norm()).item()
+    ok = got.shape == want.shape == (*qkv.shape[:2], qkv.shape[2] // 3)
+    return {"max_abs": max_abs, "rel_fro": rel_fro,
+            "ok": ok and max_abs <= 2e-2 and rel_fro <= 1e-2}
+
+
 def phase2():
     import torch
     import torch.nn.functional as F
@@ -380,14 +418,8 @@ def phase2():
     worst, ok = 0.0, True
     for n in (1, 64, 65, 301, L):
         qkv = torch.randn((B, n, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
-        got = flash_attn.flash_attention_qkv(qkv, h).float()
-        want = flash_attn.attention_qkv_plain(qkv, h).float()
-        torch.cuda.synchronize()
-        max_abs = (got - want).abs().max().item()
-        rel_fro = ((got - want).norm() / want.norm()).item()
-        good = got.shape == (B, n, h * d) and max_abs <= 2e-2 and rel_fro <= 1e-2
-        out["checks"][f"L{n}"] = {"max_abs": max_abs, "rel_fro": rel_fro, "ok": good}
-        ok, worst = ok and good, max(worst, max_abs)
+        out["checks"][f"L{n}"] = rec = _k2_serving_case(qkv, h)
+        ok, worst = ok and rec["ok"], max(worst, rec["max_abs"])
     out["ok"] = ok
     emit(out)
     if not ok:
@@ -442,6 +474,54 @@ def _bwd_native(which, qkv, out, lse, dout, D, dqkv, lib=None):
     native.check(err, which)
 
 
+def _k2_train_case(gen, B, L):
+    """K2's training calls on one seeded (B, L) draw against their plain
+    versions by phase "2-train"'s rules (see ``phase2_train``): the
+    float32 and bf16 forwards with the log-sum-exp and both backward
+    kernels, each twice for bitwise repeatability. Returns the record
+    (with "ok") and the max abs errors by key."""
+    import torch
+    from cdvslam_tpu_torch.ops import flash_attn as fa
+    errs = {}
+
+    def rel(a, b, key=None):
+        err = (a.float() - b.float()).abs().max().item()
+        if key is not None:
+            errs[key] = max(errs.get(key, 0.0), err)
+        return err / b.float().abs().max().item()
+
+    qkv = torch.randn((B, L, 1152), generator=gen, device="cuda")
+    dout = torch.randn((B, L, 384), generator=gen, device="cuda")
+    rec, good = {}, True
+    for dtype, name, tol in ((torch.float32, "f32", 1e-4), (torch.bfloat16, "bf16", 1e-2)):
+        x, g = qkv.to(dtype), dout.to(dtype)
+        o, lse = fa._forward(x, 6, with_lse=True)
+        p_out, p_lse = fa.attention_qkv_plain(x.float(), 6), fa.attention_lse_plain(x, 6)
+        r_lse = rel(lse, p_lse, "bf16_lse" if name == "bf16" else None)
+        if name == "f32":
+            r_out = rel(o, p_out, "f32")
+            o2, lse2 = fa._forward(x, 6, with_lse=True)
+            same = (torch.equal(fa._forward(x, 6, with_lse=False)[0], o)
+                    and torch.equal(o2, o) and torch.equal(lse2, lse))
+            rec.update(fwd_f32_rel=r_out, lse_f32_rel=r_lse, fwd_f32_bitwise=same)
+            good = good and r_out <= 1e-5 and r_lse <= 1e-5 and same
+        else:
+            want = fa.attention_qkv_plain(x, 6).float()
+            max_abs = (o.float() - want).abs().max().item()
+            rel_fro = ((o.float() - want).norm() / want.norm()).item()
+            rec.update(fwd_bf16_max_abs=max_abs, fwd_bf16_rel_fro=rel_fro, lse_bf16_rel=r_lse)
+            good = good and max_abs <= 2e-2 and rel_fro <= 1e-2 and r_lse <= 1e-3
+        d1 = fa.flash_attention_qkv_backward(x, o, lse, g, 6)
+        d2 = fa.flash_attention_qkv_backward(x, o, lse, g, 6)
+        r = rel(d1, fa.attention_qkv_backward_plain(x, p_out, p_lse, g, 6), f"bwd_{name}")
+        same = torch.equal(d1, d2)
+        rec[f"bwd_{name}_rel"], rec[f"bwd_{name}_bitwise"] = r, same
+        good = good and r <= tol and same
+    torch.cuda.synchronize()
+    rec["ok"] = good
+    return rec, errs
+
+
 def phase2_train():
     """K2 for training: the float32 forward (output and log-sum-exp) and
     the backward kernels in float32 and bf16 against their plain versions
@@ -464,47 +544,13 @@ def phase2_train():
     out = {"phase": "2-train", "checks": {}}
     worst = {"f32": 0.0, "bf16_lse": 0.0, "bwd_f32": 0.0, "bwd_bf16": 0.0}  # max abs errors
     ok = True
-
-    def rel(a, b, key=None):
-        err = (a.float() - b.float()).abs().max().item()
-        if key is not None:
-            worst[key] = max(worst[key], err)
-        return err / b.float().abs().max().item()
-
     for B, L in ((1, 1), (1, 7), (1, 9), (1, 63), (1, 65), (1, 127), (1, 129), (1, 1000),
                  (1, 1891), TRAIN_SHAPE[::2]):
-        qkv = torch.randn((B, L, 1152), generator=gen, device="cuda")
-        dout = torch.randn((B, L, 384), generator=gen, device="cuda")
-        rec, good = {}, True
-        for dtype, name, tol in ((torch.float32, "f32", 1e-4), (torch.bfloat16, "bf16", 1e-2)):
-            x, g = qkv.to(dtype), dout.to(dtype)
-            o, lse = fa._forward(x, 6, with_lse=True)
-            p_out, p_lse = fa.attention_qkv_plain(x.float(), 6), fa.attention_lse_plain(x, 6)
-            r_lse = rel(lse, p_lse, "bf16_lse" if name == "bf16" else None)
-            if name == "f32":
-                r_out = rel(o, p_out, "f32")
-                o2, lse2 = fa._forward(x, 6, with_lse=True)
-                same = (torch.equal(fa._forward(x, 6, with_lse=False)[0], o)
-                        and torch.equal(o2, o) and torch.equal(lse2, lse))
-                rec.update(fwd_f32_rel=r_out, lse_f32_rel=r_lse, fwd_f32_bitwise=same)
-                good = good and r_out <= 1e-5 and r_lse <= 1e-5 and same
-            else:
-                want = fa.attention_qkv_plain(x, 6).float()
-                max_abs = (o.float() - want).abs().max().item()
-                rel_fro = ((o.float() - want).norm() / want.norm()).item()
-                rec.update(fwd_bf16_max_abs=max_abs, fwd_bf16_rel_fro=rel_fro,
-                           lse_bf16_rel=r_lse)
-                good = good and max_abs <= 2e-2 and rel_fro <= 1e-2 and r_lse <= 1e-3
-            d1 = fa.flash_attention_qkv_backward(x, o, lse, g, 6)
-            d2 = fa.flash_attention_qkv_backward(x, o, lse, g, 6)
-            r = rel(d1, fa.attention_qkv_backward_plain(x, p_out, p_lse, g, 6), f"bwd_{name}")
-            same = torch.equal(d1, d2)
-            rec[f"bwd_{name}_rel"], rec[f"bwd_{name}_bitwise"] = r, same
-            good = good and r <= tol and same
-        torch.cuda.synchronize()
-        rec["ok"] = good
+        rec, errs = _k2_train_case(gen, B, L)
+        for key, err in errs.items():
+            worst[key] = max(worst[key], err)
         out["checks"][f"B{B}_L{L}"] = rec
-        ok = ok and good
+        ok = ok and rec["ok"]
     out["ok"] = ok
     emit(out)
     if not ok:
@@ -660,32 +706,42 @@ def phase4(smi):
     """The main path, each frame prefetched one frame ahead
     (``SLAM.prefetch``); returns the launch counts, the corr kernel's inputs
     captured from the last warm-up frame's update, and the FPS. After the
-    timed window, 10 blocks of 20 frames run without and with the
+    timed window, 20 blocks of 20 frames run without and with the
     prefetch in the order plain, prefetched, prefetched, plain, ... (the
     host's clock drifts within a run, and strict turns would always put
     the prefetched block second): the prefetched blocks' median time must
     not exceed the others' median by more than the others' own spread
-    (their interquartile range)."""
+    (their interquartile range). Over the blocks the upload itself is
+    timed (``SLAM.upload_log``): on the device, the plain call's copy on
+    the main stream and the main stream's wait on a prefetched frame's
+    upload (CUDA events around each); on the host, the ``prefetch()``
+    call and the plain call's upload (medians). The prefetch's mechanism
+    is checked directly: the median wait is below the median plain copy."""
     import numpy as np
     import torch
     from cdvslam_tpu_torch.config import get_cfg
     from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
     from cdvslam_tpu_torch.slam import SLAM
     from cdvslam_tpu_torch.slam import kernels as slam_kernels
-    ht, wd, WARM, WIN, BLOCK, BLOCKS = 480, 752, 60, 100, 20, 10
+    ht, wd, WARM, WIN, BLOCK, BLOCKS = 480, 752, 60, 100, 20, 20
     cfg = get_cfg()
     cfg.MOTION_PROBE_THR = -1.0
     frames, intr = _frames(ht, wd)
     kernel = slam_kernels.corr_pyramid_cl
-    captured = []
+    captured, prefetch_s = [], []
 
-    def run(fs, prefetch=True):
+    def prefetch(image):
+        t = time.perf_counter()
+        slam.prefetch(image)
+        prefetch_s.append(time.perf_counter() - t)
+
+    def run(fs, prefetch=prefetch):
         """Frames fs, each prefetched while the one before it runs."""
         if prefetch:
-            slam.prefetch(frames[fs[0] % 8])
+            prefetch(frames[fs[0] % 8])
         for f in fs:
             if prefetch and f + 1 < fs.stop:
-                slam.prefetch(frames[(f + 1) % 8])
+                prefetch(frames[(f + 1) % 8])
             slam(f, frames[f % 8], intr)
 
     def capture(*args):
@@ -714,19 +770,32 @@ def phase4(smi):
     win_attn = flash_attn.LAUNCHES.count - attn0
     edges = slam.pg.E
     block_s = {False: [], True: []}
+    prefetch_s.clear()
+    slam.upload_log = []
     for b in range(BLOCKS):
         first = WARM + WIN + b * BLOCK
         t = time.perf_counter()
         prefetched = b % 4 in (1, 2)
-        run(range(first, first + BLOCK), prefetch=prefetched)
+        run(range(first, first + BLOCK), prefetch=prefetch if prefetched else None)
         torch.cuda.synchronize()
         block_s[prefetched].append(time.perf_counter() - t)
+    log, slam.upload_log = slam.upload_log, None
     poses, tstamps = slam.terminate()
     torch.cuda.synchronize()
     counts = {"corr": corr_cuda.LAUNCHES.count, "dino_flash_attn": flash_attn.LAUNCHES.count}
     frames_run = WARM + WIN + BLOCK * BLOCKS
     q1, med, q3 = statistics.quantiles(block_s[False], n=4)
     prefetch_ratio = statistics.median(block_s[True]) / med
+    upload = {  # ms: device (CUDA events on the main stream) and host medians
+        "plain_copy_device_ms": statistics.median(
+            s.elapsed_time(e) for p, s, e, _ in log if not p),
+        "prefetched_wait_device_ms": statistics.median(
+            s.elapsed_time(e) for p, s, e, _ in log if p),
+        "plain_upload_host_ms": 1e3 * statistics.median(h for p, _, _, h in log if not p),
+        "prefetched_take_host_ms": 1e3 * statistics.median(h for p, _, _, h in log if p),
+        "prefetch_call_host_ms": 1e3 * statistics.median(prefetch_s),
+        "frames": {"plain": sum(not p for p, *_ in log), "prefetched": sum(p for p, *_ in log)},
+        "frame_bytes": frames[0].nbytes}
     checks = {
         "poses_shape": list(poses.shape) == [frames_run, 7],
         "poses_finite": bool(np.isfinite(poses).all()),
@@ -736,6 +805,8 @@ def phase4(smi):
         "corr_inputs_captured": len(captured) == 1,
         "no_inactive_store": slam.pg.tw is None and len(slam.pg.ii_inac) == 0,
         "prefetch_no_slower": statistics.median(block_s[True]) <= med + (q3 - q1),
+        "prefetch_wait_below_copy": (upload["prefetched_wait_device_ms"]
+                                     < upload["plain_copy_device_ms"]),
         "prefetch_all_used": not slam._prefetched,
     }
     ok = all(checks.values())
@@ -744,6 +815,7 @@ def phase4(smi):
           "fps_prefetch_blocks": BLOCK * len(block_s[True]) / sum(block_s[True]),
           "fps_plain_blocks": BLOCK * len(block_s[False]) / sum(block_s[False]),
           "prefetch_median_ratio": prefetch_ratio, "plain_blocks_iqr_s": q3 - q1,
+          "upload": upload,
           "frames": frames_run, "updates": slam.stats["updates"],
           "keyframe_removals": slam.stats["keyframe_removals"], "edges": edges,
           "launches": counts, "checks": checks, "card": smi,
@@ -962,87 +1034,6 @@ def phase6(smi):
 EUROC_INTR = (458.654, 457.296, 367.215, 248.375)
 
 
-def _pose_rt(pose):
-    """(R, t) of a world->cam SE3 [tx, ty, tz, qx, qy, qz, qw]."""
-    import numpy as np
-    from scipy.spatial.transform import Rotation
-    return Rotation.from_quat(pose[3:7]).as_matrix(), np.asarray(pose[:3], np.float64)
-
-
-def _se3(R, t):
-    import numpy as np
-    from scipy.spatial.transform import Rotation
-    return np.concatenate([t, Rotation.from_matrix(R).as_quat()])
-
-
-class PlaneScene:
-    """A textured plane z = 0 seen by a pinhole camera (numpy and cv2):
-    every frame is a warp of one seeded texture, so ORB keypoints and
-    triangulated points agree with the poses. Poses are world->cam SE3."""
-
-    SIZE, EXTENT = 2048, 8.0      # texture pixels across [-8, 8]^2 world units
-
-    def __init__(self, intr, ht, wd):
-        import cv2
-        import numpy as np
-        tex_size = self.SIZE
-        rng = np.random.RandomState(3)
-        tex = (rng.rand(tex_size // 16, tex_size // 16) * 255).astype(np.uint8)
-        tex = cv2.resize(tex, (tex_size, tex_size), interpolation=cv2.INTER_NEAREST)
-        tex = np.ascontiguousarray(np.stack([cv2.GaussianBlur(tex, (7, 7), 1.2)] * 3, -1))
-        for _ in range(400):        # coloured blobs: corners for ORB
-            c, r = rng.randint(0, tex_size, 2), rng.randint(4, 24)
-            cv2.circle(tex, (int(c[0]), int(c[1])), int(r), rng.randint(0, 255, 3).tolist(), -1)
-        self.tex = tex
-        self.intr = np.asarray(intr, np.float64)
-        self.ht, self.wd = ht, wd
-
-    def _hits(self, pose, u, v, intr):
-        """Plane points on the rays through pixels (u, v), and the ray
-        lengths."""
-        import numpy as np
-        R, t = _pose_rt(pose)
-        fx, fy, cx, cy = intr
-        d = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u)], -1) @ R   # R^T r
-        C = -R.T @ t
-        lam = -C[2] / np.where(np.abs(d[..., 2]) > 1e-9, d[..., 2], 1e-9)
-        return C + lam[..., None] * d, lam
-
-    def render(self, pose):
-        """(ht, wd, 3) uint8 view from the world->cam pose."""
-        import cv2
-        import numpy as np
-        u, v = np.meshgrid(np.arange(self.wd, dtype=np.float64),
-                           np.arange(self.ht, dtype=np.float64))
-        P, lam = self._hits(pose, u, v, self.intr)
-        txy = (P[..., :2] + self.EXTENT) / (2 * self.EXTENT) * self.SIZE
-        maps = [np.where(lam > 0.05, txy[..., k], -1).astype(np.float32) for k in (0, 1)]
-        return cv2.remap(self.tex, maps[0], maps[1], cv2.INTER_LINEAR, borderMode=cv2.BORDER_WRAP)
-
-    def true_inv_depth(self, pose, px, py):
-        """Inverse depths of the plane at quarter-resolution pixels (px, py)."""
-        import numpy as np
-        R, t = _pose_rt(pose)
-        P, _ = self._hits(pose, px, py, self.intr / 4)
-        return 1.0 / np.clip((P @ R.T + t)[..., 2], 0.05, None)
-
-
-def loop_path(nframes, period):
-    """(nframes, 7) world->cam poses of a camera 2 units above the plane
-    looking down, circling (radius 0.8) with one turn per ``period`` frames
-    (frame period + k revisits frame k) and yawing about its optical axis."""
-    import numpy as np
-    from scipy.spatial.transform import Rotation
-    down = Rotation.from_euler("x", np.pi).as_matrix()
-    out = []
-    for f in range(nframes):
-        th = 2 * np.pi * f / period
-        C = np.array([0.8 * np.cos(th), 0.8 * np.sin(th), 2.0])
-        R = Rotation.from_euler("z", 0.3 * np.sin(th)).as_matrix() @ down
-        out.append(_se3(R, -R @ C))
-    return np.stack(out)
-
-
 def classic_state(n, M, ht, wd, intr, loop):
     """A keyframe state for the classical backend: n keyframes of
     ``loop_path(n, n - 20)`` with a seeded drift (rotation and translation
@@ -1053,7 +1044,8 @@ def classic_state(n, M, ht, wd, intr, loop):
     import cv2
     import numpy as np
     from scipy.spatial.transform import Rotation
-    scene = PlaneScene(intr, ht, wd)
+    from cdvslam_tpu_torch.data.render import PlaneScene, _pose_rt, _se3, loop_path
+    scene = PlaneScene(intr, ht, wd, seed=3)
     gt = loop_path(n, n - 20)
     rng = np.random.RandomState(0)
 
@@ -1113,13 +1105,14 @@ def phase6_classic(smi, fps_main):
     against the port's float64 CPU run. Returns the launch counts."""
     import numpy as np
     import torch
+    from cdvslam_tpu_torch.data.render import PlaneScene, loop_path
     from cdvslam_tpu_torch.loop import long_term
     from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
     from cdvslam_tpu_torch.slam import SLAM
     ht, wd = 480, 752
     cfg = _classic_cfg()
     t = time.perf_counter()
-    scene = PlaneScene(EUROC_INTR, ht, wd)
+    scene = PlaneScene(EUROC_INTR, ht, wd, seed=3)
     frames = [scene.render(p) for p in loop_path(LC_FRAMES, LC_FRAMES - 20)]
     render_s = time.perf_counter() - t
     intr = np.asarray(EUROC_INTR, np.float32)
@@ -1649,8 +1642,9 @@ def _render_sequence(root, nframes=HARNESS_FRAMES, ht=480, wd=752):
     import cv2
     import numpy as np
     from scipy.spatial.transform import Rotation
+    from cdvslam_tpu_torch.data.render import PlaneScene, _pose_rt, loop_path
     t = time.perf_counter()
-    scene = PlaneScene(EUROC_INTR, ht, wd)
+    scene = PlaneScene(EUROC_INTR, ht, wd, seed=3)
     poses = loop_path(nframes, nframes - 20)
     imagedir = root / "images"
     imagedir.mkdir(parents=True)
@@ -1884,6 +1878,160 @@ def phase10(smi, fps_main):
     if not ok:
         raise SystemExit(f"phase 10: entry-point checks failed: {checks}")
     return counts
+
+
+PROOF_STEPS = 20        # training steps of phase 11 (the proof's own run takes 1,500)
+PROOF_L = 415           # DINO tokens of a 240 x 320 frame: 18 x 23 patches and the cls token
+PROOF_CORR_CALL = 30    # the trained run's K1 call whose inputs phase 11 holds to plain
+
+
+def _k2_proof_shape():
+    """Each K2 call at the proof's shapes against its plain version: the
+    serving call at (1, PROOF_L) in bf16 (phase 2's rule), the training
+    calls at (F, PROOF_L) by phase "2-train"'s; with kernel and plain
+    times (CUDA events, 5 calls) of the float32 forward, dQ and dK/dV at
+    the training shape and of the serving call."""
+    import torch
+    from cdvslam_tpu_torch.ops import flash_attn as fa
+    from cdvslam_tpu_torch.train import e2e_proof
+    B = e2e_proof.F
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    serving = torch.randn((1, PROOF_L, 1152), generator=gen, device="cuda").to(torch.bfloat16)
+    checks = {f"serving_B1_L{PROOF_L}": _k2_serving_case(serving, 6)}
+    checks[f"train_B{B}_L{PROOF_L}"], errs = _k2_train_case(gen, B, PROOF_L)
+    qkv = torch.randn((B, PROOF_L, 1152), generator=gen, device="cuda")
+    dout = torch.randn((B, PROOF_L, 384), generator=gen, device="cuda")
+    o, lse = fa._forward(qkv, 6, with_lse=True)
+    D, dqkv = torch.empty((B, 6, PROOF_L), device="cuda"), torch.empty_like(qkv)
+    times = {
+        "serving_bf16": (cuda_time(lambda: fa.flash_attention_qkv(serving, 6), 5),
+                         cuda_time(lambda: fa.attention_qkv_plain(serving, 6), 5)),
+        "fwd_f32": (cuda_time(lambda: fa._forward(qkv, 6, with_lse=True), 5),
+                    cuda_time(lambda: fa.attention_qkv_plain(qkv, 6), 5)),
+        "dq_f32": (cuda_time(lambda: _bwd_native("dq", qkv, o, lse, dout, D, dqkv), 5), None),
+        "dkv_f32": (cuda_time(lambda: _bwd_native("dkv", qkv, o, lse, dout, D, dqkv), 5), None)}
+    plain_bwd = cuda_time(lambda: fa.attention_qkv_backward_plain(qkv, o, lse, dout, 6), 5)
+    return checks, errs, {k: {"ms": ms, "plain_ms": plain if plain is not None else plain_bwd}
+                          for k, (ms, plain) in times.items()}
+
+
+def phase11(smi):
+    """The trained-weights proof (``train.e2e_proof``) on the card: K2 at
+    the proof's shapes against plain; PROOF_STEPS float32 training steps
+    on the clip pool (every loss finite; 24 float32 K2 forwards per step,
+    12 in the rollout's extractor and 12 again under recomputation, and
+    12 of each backward kernel; no bf16 K2 and no K1: the rollout takes
+    the plain corr); the checkpoint round trip through a temporary
+    directory (the weights the SLAM loads equal the trained ones bitwise);
+    the SLAM runs over the 40 held-out frames, trained and random at each
+    of the evaluation's seeds (the ATEs finite, K1 once per update, K2 bf16
+    12 per frame); K1 on the inputs of one update of the trained run
+    (PROOF_CORR_CALL, seed 0: pyramids of 60 x 80 and 15 x 20) against
+    plain by phase 1's rule, with its times. Returns the launch counts of
+    training and of the SLAM runs, K2's times and K1's record."""
+    import tempfile
+    import numpy as np
+    import torch
+    from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
+    from cdvslam_tpu_torch.slam import kernels as slam_kernels
+    from cdvslam_tpu_torch.train import e2e_proof
+    k2_checks, k2_errs, k2_times = _k2_proof_shape()
+    torch.cuda.empty_cache()
+    corr_cuda.LAUNCHES.reset()
+    flash_attn.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="cdv_proof_") as tmp:
+        ckpt = str(Path(tmp) / "e2e_proof.pt")
+        t = time.perf_counter()
+        model, state, records = e2e_proof.train(PROOF_STEPS, "cuda", ckpt=ckpt)
+        train_s = time.perf_counter() - t
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        train_counts = {"corr": corr_cuda.LAUNCHES.count, "fwd_bf16": flash_attn.LAUNCHES.count,
+                        "fwd_f32": flash_attn.LAUNCHES_F32.count,
+                        "bwd_dq": flash_attn.LAUNCHES_DQ.count,
+                        "bwd_dkv": flash_attn.LAUNCHES_DKV.count}
+        weights = e2e_proof.load_weights(ckpt, "cuda")
+    trained = model.state_dict()
+    bitwise = list(weights) == list(trained) and all(
+        torch.equal(weights[k], trained[k]) for k in trained)
+    del model, state, trained
+    torch.cuda.empty_cache()
+    kernel, calls, captured, slams = slam_kernels.corr_pyramid_cl, [0], [], []
+
+    def capture(*args):
+        if not slams:                          # the trained run at the first seed
+            calls[0] += 1
+            if calls[0] == PROOF_CORR_CALL:
+                captured.append(tuple(a.clone() for a in args[:6]))
+        return kernel(*args)
+
+    corr_cuda.LAUNCHES.reset()
+    flash_attn.reset_counts()
+    slam_kernels.corr_pyramid_cl = capture
+    try:
+        t = time.perf_counter()
+        result = e2e_proof.evaluate(weights, "cuda", sink=slams)
+        eval_s = time.perf_counter() - t
+    finally:
+        slam_kernels.corr_pyramid_cl = kernel
+    slam_counts = {"corr": corr_cuda.LAUNCHES.count, "fwd_bf16": flash_attn.LAUNCHES.count,
+                   "fwd_f32": flash_attn.LAUNCHES_F32.count}
+    corr = None
+    if captured:
+        err, rel, _ = _corr_check(captured[0])
+        corr = {"max_abs_err": err, "rel": rel, "E": captured[0][3].shape[0],
+                "levels": [tuple(f.shape[1:3]) for f in captured[0][1:3]],
+                **_corr_record(captured[0])}
+    losses = [r["loss"] for r in records]
+    step_ms = [r["ms"] for r in records]
+    S, runs = PROOF_STEPS, 2 * len(e2e_proof.EVAL_SEEDS)
+    ates = result["ate_trained_seeds"] + result["ate_random_seeds"]
+    checks = {
+        "k2_proof_shapes": all(c["ok"] for c in k2_checks.values()),
+        "losses_finite": len(records) == S and bool(np.isfinite(losses).all()),
+        "train_k2_f32_24_per_step": train_counts["fwd_f32"] == 24 * S,
+        "train_k2_dq_12_per_step": train_counts["bwd_dq"] == 12 * S,
+        "train_k2_dkv_12_per_step": train_counts["bwd_dkv"] == 12 * S,
+        "train_no_bf16_k2_no_k1": train_counts["fwd_bf16"] == train_counts["corr"] == 0,
+        "checkpoint_round_trip_bitwise": bitwise,
+        "ates_finite": len(slams) == runs and len(ates) == runs and bool(
+            np.isfinite(ates).all()),
+        "slam_corr_1_per_update": slam_counts["corr"] == sum(x.stats["updates"] for x in slams),
+        "slam_k2_bf16_12_per_frame": slam_counts["fwd_bf16"] == 12 * runs * e2e_proof.EVAL_FRAMES,
+        "corr_on_a_trained_update": corr is not None and corr["rel"] <= 5e-3,
+    }
+    ok = all(checks.values())
+    emit({"phase": 11, "steps": S, "loss_curve": losses, "step_ms": step_ms,
+          "step_ms_median_after_2": statistics.median(step_ms[2:]), "train_s": train_s,
+          "peak_mem_gb": peak_gb, "result": result, "eval_s": eval_s,
+          "updates": [x.stats["updates"] for x in slams],
+          "launches_train": train_counts, "launches_slam": slam_counts,
+          "k2_proof_shape": {"checks": k2_checks, "max_abs": k2_errs, "times": k2_times},
+          "corr_trained_update": corr, "checks": checks, "card": smi,
+          "cuts": {"steps": f"{S} (the proof's own run: 1,500)"}, "ok": ok})
+    if not ok:
+        raise SystemExit(f"phase 11: the proof's checks failed: {checks}")
+    return {"train": train_counts, "slam": slam_counts, "k2_times": k2_times, "corr": corr}
+
+
+def phase12(smi, per_loop=24):
+    """The retrieval-recall harness (``eval.lc_recall``) at per_loop frames
+    a loop, sigma 0 and 5, on the host (cv2 ORB, the native BoW library):
+    the table's rows; recall at sigma 0 and thresh 0.04 above 0."""
+    import io
+    from cdvslam_tpu_torch.eval import lc_recall
+    t = time.perf_counter()
+    table = lc_recall.run(per_loop, sigmas=(0.0, 5.0), out=io.StringIO())
+    wall = time.perf_counter() - t
+    first = next(r for r in table["rows"] if r["sigma"] == 0.0 and r["thresh"] == 0.04)
+    checks = {"recall_sigma0_thresh004_above_0": first["recall"] > 0,
+              "rows": len(table["rows"]) == 10}
+    ok = all(checks.values())
+    emit({"phase": 12, **table, "wall_s": wall, "device": "host", "checks": checks,
+          "card": smi, "cuts": {"per_loop": f"{per_loop} (the harness's default: 48)",
+                                "sigmas": "0 and 5 (the harness's: 0, 2, 5, 10)"}, "ok": ok})
+    if not ok:
+        raise SystemExit(f"phase 12: the recall harness's checks failed: {checks}")
 
 
 GROUPS = {"cdv": ("patchify.dino", "patchify.xfeat", "update", "posenc"),
@@ -2267,6 +2415,8 @@ def main():
     dpv_loop_rec = corr_on_captured("8-loop-update", dpv_loop_captured)
     train = phase9(smi)
     harness_counts = phase10(smi, fps_main)
+    proof = phase11(smi)
+    phase12(smi)
 
     ops_ms, bytes_ms = attn_rec["bound"]
     kernels = [
@@ -2286,6 +2436,14 @@ def main():
          "launches_harness_path": harness_counts["corr"],
          "launches_classic_path": classic_counts["corr"],
          "launches_cdvo_pp_path": pp_counts["corr"],
+         "launches_proof_slam_runs": proof["slam"]["corr"],
+         "launches_proof_training": proof["train"]["corr"],
+         "E_proof_update": proof["corr"]["E"], "levels_proof_update": proof["corr"]["levels"],
+         "max_abs_err_proof_update": proof["corr"]["max_abs_err"],
+         "ms_proof_update": proof["corr"]["ms"],
+         "plain_ms_proof_update": proof["corr"]["plain_ms"],
+         "bound_ms_proof_update": proof["corr"]["bound_ms"],
+         "box_share_proof_update": proof["corr"]["box_share"],
          "E_loop_update": lc_captured[3].shape[0], "ms_loop_update": loop_rec["ms"],
          "plain_ms_loop_update": loop_rec["plain_ms"],
          "bound_ms_loop_update": loop_rec["bound_ms"],
@@ -2317,6 +2475,9 @@ def main():
          "launches_classic_path": classic_counts["dino_flash_attn"],
          "launches_cdvo_pp_path": pp_counts["dino_flash_attn"],
          "launches_dpvo_path": dpvo_counts["dino_flash_attn"],
+         "launches_proof_slam_runs": proof["slam"]["fwd_bf16"],
+         "ms_proof_shape": proof["k2_times"]["serving_bf16"]["ms"],
+         "plain_ms_proof_shape": proof["k2_times"]["serving_bf16"]["plain_ms"],
          "per": "one call, packed qkv (1, 1891, 1152) bf16 -> (1, 1891, 384); ms and "
                 "library_ms are medians of 5 alternating rounds of 20 calls",
          "rounds": attn_rec["rounds"],
@@ -2342,6 +2503,10 @@ def main():
         rec = t[f"{key}_{dt}"]
         run = "float32" if dt == "f32" else "bf16"
         extra = {"status": "redesigned", "share_of_bound": rec["share_of_bound"]}
+        if dt == "f32":   # the proof's float32 training (phase 11)
+            at = proof["k2_times"][f"{key}_f32"]
+            extra.update(launches_proof_training=proof["train"][src],
+                         ms_proof_shape=at["ms"], plain_ms_proof_shape=at["plain_ms"])
         if dt == "f32":
             extra.update(bound_fma_ms=rec["bound_fma_ms"],
                          share_of_fma_bound=rec["share_of_fma_bound"])

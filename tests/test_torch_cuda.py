@@ -575,3 +575,45 @@ def test_dry_run_on_the_card(card, tmp_path):
     assert dryrun.run(2, workdir=tmp_path) == 0
     a = torch.load(tmp_path / "single.pt")
     assert sum(g.abs().max().item() > 0 for g in a["grads"].values()) > 0.9 * len(a["grads"])
+
+
+def test_prefetch_from_a_reader_thread_on_the_card(card):
+    """``SLAM.prefetch`` on the card from a reader thread: each frame's
+    upload on the upload stream arrives bitwise, and the same frames give
+    bitwise the poses of plain calls (the float32 "cdv" SLAM); the upload
+    log records one wait per prefetched frame."""
+    import queue
+    import threading
+    rng = np.random.RandomState(0)
+    frames = [(rng.rand(64, 96, 3) * 255).astype(np.uint8) for _ in range(12)]
+    intr = np.array([80.0, 80.0, 48.0, 32.0], np.float32)
+    cfg = get_cfg()
+    cfg.PATCHES_PER_FRAME, cfg.BUFFER_SIZE = 8, 32
+    cfg.MOTION_PROBE_THR, cfg.MIXED_PRECISION = -1.0, False
+    runs = []
+    for prefetch in (False, True):
+        slam = SLAM(cfg, "cdv", ht=64, wd=96, device=card, seed=0)
+        slam.upload_log = []
+        q = queue.Queue(maxsize=2)
+
+        def reader():
+            for img in frames:
+                if prefetch:
+                    slam.prefetch(img)
+                q.put(img)
+
+        th = threading.Thread(target=reader, daemon=True)
+        th.start()
+        for f in range(len(frames)):
+            img = q.get(timeout=60)
+            if prefetch:
+                _, frame, ready = slam._prefetched[id(img)]
+                ready.synchronize()
+                assert torch.equal(frame.cpu(), torch.from_numpy(img))
+            slam(f, img, intr)
+        th.join(timeout=60)
+        assert not th.is_alive()
+        assert [p for p, *_ in slam.upload_log] == [prefetch] * len(frames)
+        assert not slam._prefetched
+        runs.append(slam.terminate()[0])
+    assert np.array_equal(runs[0], runs[1])

@@ -130,7 +130,7 @@ _ENTRY_POINTS = ["cdvslam_tpu_torch.demo", "cdvslam_tpu_torch.eval.euroc",
                  "cdvslam_tpu_torch.eval.tum", "cdvslam_tpu_torch.eval.tartan",
                  "cdvslam_tpu_torch.eval.kitti", "cdvslam_tpu_torch.eval.icl_nuim",
                  "cdvslam_tpu_torch.eval.nuscene", "cdvslam_tpu_torch.train.cli",
-                 "cdvslam_tpu_torch.parallel.dryrun"]
+                 "cdvslam_tpu_torch.train.e2e_proof", "cdvslam_tpu_torch.parallel.dryrun"]
 
 _HELP = """
 import contextlib, io, json, runpy, sys

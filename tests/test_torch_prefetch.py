@@ -1,6 +1,11 @@
 """``SLAM.prefetch`` on the CPU: frames prefetched one ahead give bitwise
-the poses of frames passed without it, every upload is used once, and at
-most 4 are kept (the oldest goes first)."""
+the poses of frames passed without it, from the frame loop's thread or
+from a reader thread, every upload is used once, and at most 4 are kept
+(the oldest goes first). The card's upload stream is tested on the card
+(``test_torch_cuda.py``)."""
+import queue
+import threading
+
 import numpy as np
 import torch
 
@@ -19,9 +24,13 @@ def _slam():
     return SLAM(cfg, "cdv", ht=H, wd=W, device="cpu")
 
 
-def test_prefetched_frames_give_bitwise_the_same_poses():
+def _frames():
     rng = np.random.RandomState(0)
-    frames = [(rng.rand(H, W, 3) * 255).astype(np.uint8) for _ in range(FRAMES)]
+    return [(rng.rand(H, W, 3) * 255).astype(np.uint8) for _ in range(FRAMES)]
+
+
+def test_prefetched_frames_give_bitwise_the_same_poses():
+    frames = _frames()
     runs = []
     for prefetch in (False, True):
         slam = _slam()
@@ -36,6 +45,32 @@ def test_prefetched_frames_give_bitwise_the_same_poses():
             runs.append(slam.terminate()[0])
         assert not slam._prefetched
     assert np.array_equal(runs[0], runs[1])
+
+
+def test_frames_prefetched_by_a_reader_thread_give_bitwise_the_same_poses():
+    frames = _frames()
+    slam = _slam()
+    with torch.no_grad():
+        for f, img in enumerate(frames):
+            slam(f, img, INTR)
+        plain = slam.terminate()[0]
+    slam, q = _slam(), queue.Queue(maxsize=2)
+
+    def reader():
+        for img in frames:
+            slam.prefetch(img)
+            q.put(img)
+
+    th = threading.Thread(target=reader, daemon=True)
+    th.start()
+    with torch.no_grad():
+        for f in range(FRAMES):
+            img = q.get(timeout=60)
+            assert id(img) in slam._prefetched
+            slam(f, img, INTR)
+    th.join(timeout=60)
+    assert not th.is_alive() and not slam._prefetched
+    assert np.array_equal(slam.terminate()[0], plain)
 
 
 def test_prefetch_keeps_at_most_four_uploads():

@@ -86,9 +86,12 @@ def clip(seed=0, n=None):
     return images, poses, disps, intr
 
 
-def jax_draws(cfg, key):
-    """The draws ``rollout_loss`` makes from ``key``: patch centres, d0 and
-    the dropout rolls, under jax.jit."""
+def jax_draws(cfg, key, H=H, W=W):
+    """The draws ``rollout_loss`` makes from ``key`` for cfg.F frames of
+    H x W and cfg.M patches: patch centres, d0 and the dropout rolls,
+    under jax.jit."""
+    F, M = cfg.F, cfg.M
+
     @jax.jit
     def draw(key):
         key, k1 = jax.random.split(key)
