@@ -489,9 +489,9 @@ bool encode_f32_map(EncodeTiled encode, CUtensorMap* map, const void* base, int 
 // LSE) and write their slots of the packed dqkv (B, L, 3, H, 64) directly.
 // Query rows at or past L get LSE = +inf, so P = 0; keys at or past L are
 // masked in dQ (their zero-filled rows give S = 0, not -inf) and never
-// written in dK/dV. No atomics: every output element is summed by one
-// thread (float32) or one wgmma accumulator (bf16) in a fixed order, so two
-// calls on the same inputs are bitwise equal.
+// written in dK/dV. No atomics: every output element is summed by wgmma
+// accumulators (in float32, each tile's added to the sum by one thread) in
+// a fixed order, so two calls on the same inputs are bitwise equal.
 //
 // bf16: the tensor cores, with the forward's operand patterns. One
 // warpgroup per CTA; its two own tiles and a 3-stage ring of the streamed
@@ -515,24 +515,44 @@ bool encode_f32_map(EncodeTiled encode, CUtensorMap* map, const void* base, int 
 //  rounds them (p.T.astype(do.dtype), ds.astype(k.dtype)); S, dP and every
 //  accumulator stay float32.
 //
-// float32: FP32 FMA, 256 threads in two halves of 128, each half running one
-// of the tile's 64 x 64 products at a time (dQ: S | dP, then dQ over half
-// of the keys each; dK/dV: S^T then dV | dP^T, dS^T then dK), each thread
-// holding an 8 x 4 register block. Tiles are 64 x 64 floats without
-// padding, their 16-byte chunks swizzled by the row (chunk c of row r at
-// c ^ (r & 7)), so every operand is read as one 16-byte vector per four
-// products, the 8 lanes of a quarter-warp hit 8 different bank groups, and
-// one step of four head dims loads 12 vectors for 128 FMAs (4 x 4 blocks
-// over all 256 threads: 8 for 64, and 1.1x slower on the H100; 8 x 8 blocks
-// over 128-row CTAs, one per SM: no faster). The streamed tiles come in by
-// cp.async (zero fill past L), single-buffered so that two CTAs fit on an
-// SM: one CTA's copy runs under the other's products (double buffering
-// measured no faster). P and dS go through shared memory between the
-// products.
+// float32: three TF32 passes on wgmma, as the float32 forward. A TF32
+// operand in shared memory must be K-major (wgmma's transpose bits exist
+// only for 16-bit types), and the three products that sum over tokens (dQ
+// = dS K over keys, dK = dS^T Q and dV = P^T dO over queries) need their
+// shared-memory operand token-contiguous. So a pre-pass, flash_bwd_f32_split
+// (a third launch, in the dQ entry point), writes Q, K, V and dO split into
+// TF32 hi and lo parts row-major, and K^T, Q^T and dO^T split and permuted
+// by slot_key (as the forward's V^T), into scratch the wrapper allocates;
+// P or dS then feeds those products from the accumulator's registers. Each
+// product is lo hi + hi lo + hi hi, smallest pass first, into an
+// accumulator of its own per tile, added to dQ (dK, dV) in float32 (the
+// tensor cores round their sums toward zero). Both kernels run a producer
+// warpgroup (setmaxnreg 40; TMA, full and empty mbarriers) and two
+// consumer warpgroups (232):
+//  - dQ: 128 queries per CTA, 64 per consumer warpgroup; Q in shared
+//    memory, dO as register A fragments; a two-stage ring of K and V, one
+//    stage of K^T; 224 KB of shared memory.
+//  - dK/dV: 64 keys per CTA; warpgroup 0 holds K in registers and forms
+//    S^T, P^T and dV, warpgroup 1 holds V and forms dP^T, dS^T and dK, P^T
+//    going from one to the other through shared memory; two-stage rings of
+//    Q and dO, with each query tile's LSE and D beside them, one stage each
+//    of dO^T and Q^T; 225 KB.
+// Every product but dQ's S = Q K^T takes its A operand from registers, so
+// its wgmma reads only the B tile from shared memory: at N = 64 a TF32
+// wgmma with both operands there reads 4 KB in the 32 cycles the tensor
+// cores take for it, all of the SM's 128 bytes a cycle. At the training
+// shape (B 15, L 1,611): pre-pass 0.266 ms, dQ 0.758 (72% of its
+// three-pass bound), dK/dV 1.078 (67%), 2.14 ms for the pair against the
+// FP32-FMA pair's 6.66 and SDPA's float32 backward's 4.72; dqkv within
+// 1.5e-6 of max |float64| (kernel_ab.py flash_attn_bwd; NVIDIA H100 80GB
+// HBM3, 700 W). Neither kernel waits on L2: with the loads removed they
+// take as long. Clusters of two CTAs sharing each streamed tile by TMA
+// multicast were slower (4.23 ms for the pair): the two CTAs' rings wait
+// on each other.
 // ---------------------------------------------------------------------------
 
 constexpr int FT = 64;          // rows per tile
-constexpr int FTHREADS = 256;   // float32 backward kernels and the pre-pass
+constexpr int FTHREADS = 256;   // the float32 pre-passes
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -1267,302 +1287,496 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap qkv, const __grid_constan
   }
 }
 
-// ---- float32 backward --------------------------------------------------------
+// ---- float32 backward: three TF32 passes on wgmma ----------------------------
 
-constexpr int FTILE = FT * HD;   // floats per 64 x 64 tile (16 KB)
-constexpr int HALF = FTHREADS / 2;
+// The scratch of one float32 backward call, Lp = flash_attn_f32_rows(L)
+// rows (past L zero), planes of Lp x 64 floats: rm holds [Q hi, Q lo, K hi,
+// K lo, V hi, V lo, dO hi, dO lo] x [B H] row-major, tr holds [Q^T hi, Q^T
+// lo, K^T hi, K^T lo, dO^T hi, dO^T lo] x [B H] as 64 rows (head dims) of
+// Lp token slots, each group of 8 slots permuted by slot_key.
+constexpr int RM_PLANES = 8, TR_PLANES = 6;
+enum { OP_Q = 0, OP_K = 1, OP_V = 2, OP_DO = 3 };   // rm operands
+enum { TR_Q = 0, TR_K = 1, TR_DO = 2 };             // tr operands
 
-// float offset of head dims 4 c4 .. 4 c4 + 3 of row r in a swizzled tile
-__device__ __forceinline__ int swz(int r, int c4) { return r * HD + 4 * (c4 ^ (r & 7)); }
-
-__device__ __forceinline__ float comp(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// barrier of the 128 threads of one half of the CTA (ids 1 and 2; 0 is __syncthreads)
-__device__ __forceinline__ void half_sync(int half) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + half), "n"(HALF) : "memory");
-}
-
-// rows row0..row0+63 of a (L, 64)-row float view with `stride` floats
-// between rows into a swizzled tile by cp.async; rows at or past L are zero
-__device__ __forceinline__ void load_tile_async(float* s, const float* __restrict__ src,
-                                                size_t stride, int row0, int L) {
+// The pre-pass: rows r0..r0+63 of one (batch, head) of operand op (Q, K and
+// V from the packed qkv, dO from dout) into its row-major planes, and for
+// Q, K and dO into its transposed, permuted planes.
+__global__ void __launch_bounds__(FTHREADS)
+flash_bwd_f32_split(const float* __restrict__ qkv, const float* __restrict__ dout,
+                    float* __restrict__ rm, float* __restrict__ tr, int L, int H, int Lp) {
+  __shared__ float sv[FT][HD + 1];
+  const int r0 = blockIdx.x * FT, bh = blockIdx.y, BH = gridDim.y, op = blockIdx.z;
+  const int b = bh / H, h = bh % H;
+  const size_t plane = static_cast<size_t>(Lp) * HD;
+  const size_t rs = static_cast<size_t>(op == OP_DO ? 1 : 3) * H * HD;
+  const float* src = op == OP_DO ? dout + static_cast<size_t>(b) * L * rs + h * HD
+                                 : qkv + static_cast<size_t>(b) * L * rs + (op * H + h) * HD;
   for (int i = threadIdx.x; i < FT * HD / 4; i += FTHREADS) {
-    const int r = i >> 4, c = i & 15, row = row0 + r;
-    cp_async16(s + swz(r, c), src + static_cast<size_t>(row < L ? row : 0) * stride + 4 * c,
-               row < L);
+    const int r = i >> 4, c = 4 * (i & 15), row = r0 + r;
+    const float4 x = row < L ? *reinterpret_cast<const float4*>(src + row * rs + c)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 hi, lo;
+    split_tf32(x.x, hi.x, lo.x);
+    split_tf32(x.y, hi.y, lo.y);
+    split_tf32(x.z, hi.z, lo.z);
+    split_tf32(x.w, hi.w, lo.w);
+    const size_t off = static_cast<size_t>(row) * HD + c;
+    *reinterpret_cast<float4*>(rm + (2 * op * BH + bh) * plane + off) = hi;
+    *reinterpret_cast<float4*>(rm + ((2 * op + 1) * BH + bh) * plane + off) = lo;
+    sv[r][c] = x.x;
+    sv[r][c + 1] = x.y;
+    sv[r][c + 2] = x.z;
+    sv[r][c + 3] = x.w;
   }
-}
-
-// The products run on one half of the CTA each: thread t of a half holds
-// the 8 x 4 block rows ty + 8 i, columns tx + 16 j (or 4 tx + e), with
-// tx = t % 16, ty = t / 16; the 8 lanes of a quarter-warp share ty.
-
-// acc[i][j] += sum_d A[ty + 8 i][d] B[tx + 16 j][d] (two swizzled tiles)
-__device__ __forceinline__ void mm_nt(float (&acc)[8][4], const float* A, const float* B, int tx,
-                                      int ty) {
-#pragma unroll 1
-  for (int c = 0; c < HD / 4; ++c) {
-    float4 v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = *reinterpret_cast<const float4*>(B + swz(tx + 16 * j, c));
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 a = *reinterpret_cast<const float4*>(A + swz(ty + 8 * i, c));
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(a.x, v[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a.y, v[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a.z, v[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a.w, v[j].w, acc[i][j]);
-      }
-    }
-  }
-}
-
-// acc[i][e] += sum_k A[ty + 8 i][k] B[k][4 tx + e] over k in [4 c0, 4 c1)
-// (two swizzled tiles)
-__device__ __forceinline__ void mm_nn(float (&acc)[8][4], const float* A, const float* B, int tx,
-                                      int ty, int c0, int c1) {
-#pragma unroll 1
-  for (int c = c0; c < c1; ++c) {
-    float4 a[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] = *reinterpret_cast<const float4*>(A + swz(ty + 8 * i, c));
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float4 v = *reinterpret_cast<const float4*>(B + swz(4 * c + e, tx));
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float x = comp(a[i], e);
-        acc[i][0] = fmaf(x, v.x, acc[i][0]);
-        acc[i][1] = fmaf(x, v.y, acc[i][1]);
-        acc[i][2] = fmaf(x, v.z, acc[i][2]);
-        acc[i][3] = fmaf(x, v.w, acc[i][3]);
-      }
-    }
-  }
-}
-
-// element (r, c) of a 64 x 64 block in a swizzled tile
-__device__ __forceinline__ float& at_swz(float* s, int r, int c) {
-  return s[swz(r, c >> 2) + (c & 3)];
-}
-
-// dQ for one (query tile, head, batch), and D = rowsum(dO * O) for its
-// rows. Per key tile: half 0 forms S = Q K^T and P, half 1 dP = dO V^T;
-// half 1 turns P into dS; each half sums dQ over half of the tile's keys
-// (the two partial sums are added once, at the end). The K/V tiles are
-// single-buffered, which keeps two CTAs per SM: the next tile's copy runs
-// under the other CTA's products.
-__global__ void __launch_bounds__(FTHREADS, 2)
-flash_bwd_dq_f32(const float* __restrict__ qkv, const float* __restrict__ out,
-                 const float* __restrict__ dout, const float* __restrict__ lse,
-                 float* __restrict__ Dbuf, float* __restrict__ dqkv, int L, int H, float scale) {
-  extern __shared__ float4 fsm4[];
-  float* sQ = reinterpret_cast<float*>(fsm4);
-  float* sdO = sQ + FTILE;
-  float* sK = sdO + FTILE;
-  float* sV = sK + FTILE;
-  float* sP = sV + FTILE;   // P, then dS
-  float* sL = sP + FTILE;
-  float* sD = sL + FT;
-  const int half = threadIdx.x / HALF, tx = threadIdx.x & 15, ty = (threadIdx.x % HALF) >> 4;
-  const int q0 = blockIdx.x * FT, h = blockIdx.y, b = blockIdx.z;
-  const int nt = (L + FT - 1) / FT;
-  const size_t rs = static_cast<size_t>(3) * H * HD, os = static_cast<size_t>(H) * HD;
-  const float* base = qkv + static_cast<size_t>(b) * L * rs;
-  const float* obase = out + static_cast<size_t>(b) * L * os + h * HD;
-  const size_t stat = (static_cast<size_t>(b) * H + h) * L;
-  load_tile_async(sQ, base + h * HD, rs, q0, L);
-  load_tile_async(sdO, dout + static_cast<size_t>(b) * L * os + h * HD, os, q0, L);
-  load_tile_async(sK, base + (H + h) * HD, rs, 0, L);
-  load_tile_async(sV, base + (2 * H + h) * HD, rs, 0, L);
-  cp_commit();
-  cp_wait<0>();
+  if (op == OP_V) return;   // V is only ever a row-major operand
+  const int tp = op == OP_DO ? TR_DO : op;
   __syncthreads();
-  {
-    // four threads per row, 16 products each
-    const int r = threadIdx.x >> 2, part = threadIdx.x & 3, row = q0 + r;
-    float acc = 0.f;
-    if (row < L) {
+  // a warp writes 32 consecutive slots of one head dim n
+  for (int i = threadIdx.x; i < FT * HD; i += FTHREADS) {
+    const int n = i >> 6, c = i & 63;
+    float hi, lo;
+    split_tf32(sv[slot_key(c)][n], hi, lo);
+    const size_t off = static_cast<size_t>(n) * Lp + r0 + c;
+    tr[(2 * tp * BH + bh) * plane + off] = hi;
+    tr[((2 * tp + 1) * BH + bh) * plane + off] = lo;
+  }
+}
+
+// The rows of a 64 x 64 operand as the TF32 A fragments (hi, lo) of the
+// eight k8 steps over its 64 columns, read from device memory and split in
+// registers: register a of step kk holds row 16 warp + lane / 4 + 8 (a & 1),
+// column 8 kk + lane % 4 + 4 (a >> 1) of the warpgroup's 64 rows; rows at
+// or past L are zero. x points at row 0's first column, rows `stride` apart.
+__device__ __forceinline__ void load_a_tf32(const float* __restrict__ x, size_t stride, int row0,
+                                            int L, uint32_t (&ah)[8][4], uint32_t (&al)[8][4]) {
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % THREADS) / 32;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float4 o = *reinterpret_cast<const float4*>(obase + row * os + 16 * part + 4 * c);
-        const float4 g = *reinterpret_cast<const float4*>(sdO + swz(r, 4 * part + c));
-        acc = fmaf(g.x, o.x, acc);
-        acc = fmaf(g.y, o.y, acc);
-        acc = fmaf(g.z, o.z, acc);
-        acc = fmaf(g.w, o.w, acc);
-      }
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    if (part == 0) {
-      sD[r] = acc;
-      sL[r] = row < L ? lse[stat + row] : CUDART_INF_F;   // padded rows: P = 0
-      if (row < L) Dbuf[stat + row] = acc;
+  for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int row = row0 + 16 * warp + lane / 4 + 8 * (a & 1);
+      const float v = row < L ? x[row * stride + 8 * kk + lane % 4 + 4 * (a >> 1)] : 0.f;
+      float hi, lo;
+      split_tf32(v, hi, lo);
+      ah[kk][a] = __float_as_uint(hi);
+      al[kk][a] = __float_as_uint(lo);
     }
   }
-  float dq[8][4] = {};
-  for (int t = 0; t < nt; ++t) {
-    cp_wait<0>();
-    __syncthreads();   // tile t is in (and, first, D and the LSE are stored)
-    float x[8][4] = {};   // half 0: S, half 1: dP
-    mm_nt(x, half ? sdO : sQ, half ? sV : sK, tx, ty);
-    const int k0 = t * FT;
-    if (half == 0) {
+}
+
+// Accumulator element s[4 j + e] (row + 8 (e >> 1), column 8 j + 2 (lane % 4)
+// + (e & 1)) is register ((e & 1) << 1 | e >> 1) of k8 step j of an A
+// fragment over the same 64 columns in slot_key order (see softmax_tf32).
+__device__ __forceinline__ void split_to_a(float x, int i, uint32_t (&ah)[8][4],
+                                           uint32_t (&al)[8][4]) {
+  const int j = i >> 2, e = i & 3, a = ((e & 1) << 1) | (e >> 1);
+  float hi, lo;
+  split_tf32(x, hi, lo);
+  ah[j][a] = __float_as_uint(hi);
+  al[j][a] = __float_as_uint(lo);
+}
+
+__device__ __forceinline__ void add_to(float (&d)[32], const float (&x)[32]) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = ty + 8 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          at_swz(sP, r, tx + 16 * j) =
-              k0 + tx + 16 * j < L ? expf(fmaf(x[i][j], scale, -sL[r])) : 0.f;
+  for (int i = 0; i < 32; ++i) d[i] += x[i];
+}
+
+// shared memory of the float32 dQ kernel, from the 1024-aligned base: Q
+// (hi, lo) of each consumer warpgroup, a two-stage ring of K and V (hi, lo
+// each), one stage of K^T (hi, lo), then the mbarriers
+constexpr uint32_t DQ_OFF_KV = 4 * F_TILE;
+constexpr uint32_t DQ_OFF_KT = DQ_OFF_KV + 2 * 4 * F_TILE;
+constexpr uint32_t DQ_OFF_BAR = DQ_OFF_KT + 2 * F_TILE;
+constexpr uint32_t DQ_F32_SMEM = DQ_OFF_BAR + 8 * 7 + 1024;   // + alignment slack
+
+// dQ for one (128-query tile, head, batch), and D = rowsum(dO * O) for its
+// rows. Each consumer warpgroup holds 64 query rows: Q (hi, lo) in shared
+// memory, dO (hi, lo) as register A fragments. Per key tile: S = Q K^T
+// (both operands in shared memory) and dP = dO V^T, one batch of 48 wgmma;
+// dS = P (dP - D) split into the A fragments of dQ_t = dS K (K^T from the
+// pre-pass), 24 wgmma into an accumulator of its own; dQ += dQ_t in float32.
+__global__ void __launch_bounds__(F_THREADS, 1)
+flash_bwd_dq_f32(const __grid_constant__ CUtensorMap rm, const __grid_constant__ CUtensorMap tr,
+                 const float* __restrict__ out, const float* __restrict__ dout,
+                 const float* __restrict__ lse, float* __restrict__ Dbuf,
+                 float* __restrict__ dqkv, int L, int H, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sKV = base + DQ_OFF_KV, sKT = base + DQ_OFF_KT;
+  const uint32_t barQ = base + DQ_OFF_BAR;
+  const uint32_t fullKV = barQ + 8, emptyKV = fullKV + 16, fullKT = emptyKV + 16;
+  const uint32_t emptyKT = fullKT + 8;
+  const int tid = threadIdx.x, wg = tid / THREADS;
+  const int q0 = blockIdx.x * F_ROWS, head = blockIdx.y, b = blockIdx.z;
+  const int BH = gridDim.y * gridDim.z, bh = b * gridDim.y + head;
+  const int nt = (L + BK - 1) / BK;
+  if (tid == 0) {
+    mbar_init(barQ);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(fullKV + 8 * s);
+      mbar_init_count(emptyKV + 8 * s, 8);   // one arrival per consumer warp
+    }
+    mbar_init(fullKT);
+    mbar_init_count(emptyKT, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // the producer: Q, then K and V of tile j and K^T of tile j in turn
+    setmaxnreg_dec<40>();
+    if (tid == 2 * THREADS) {
+      mbar_expect_tx(barQ, 4 * F_TILE);
+      for (int w = 0; w < 2; ++w)
+        for (int part = 0; part < 2; ++part)
+          tma_tile_f32(base + (2 * w + part) * F_TILE, &rm, barQ, 0, q0 + BQ * w,
+                       (2 * OP_Q + part) * BH + bh);
+      for (int j = 0; j < nt; ++j) {
+        const int st = j % 2;
+        if (j >= 2) mbar_wait(emptyKV + 8 * st, (j / 2 - 1) & 1);
+        mbar_expect_tx(fullKV + 8 * st, 4 * F_TILE);
+        for (int i = 0; i < 4; ++i)   // K hi, K lo, V hi, V lo
+          tma_tile_f32(sKV + (4 * st + i) * F_TILE, &rm, fullKV + 8 * st, 0, j * BK,
+                       (2 * OP_K + i) * BH + bh);
+        if (j >= 1) mbar_wait(emptyKT, (j - 1) & 1);
+        mbar_expect_tx(fullKT, 2 * F_TILE);
+        for (int part = 0; part < 2; ++part)
+          tma_tile_f32(sKT + part * F_TILE, &tr, fullKT, j * BK, 0, (2 * TR_K + part) * BH + bh);
       }
     }
-    __syncthreads();
-    if (half == 1) {   // dS = P (dP - D) in place of P
+    return;
+  }
+  setmaxnreg_inc<232>();
+
+  const int warp = (tid % THREADS) / 32, lane = tid % 32;
+  const int r0 = q0 + BQ * wg + 16 * warp + lane / 4;   // this thread's rows r0, r0 + 8
+  const size_t C = static_cast<size_t>(H) * HD;
+  const size_t stat = (static_cast<size_t>(b) * H + head) * L;
+  const float* obase = out + static_cast<size_t>(b) * L * C + head * HD;
+  const float* gbase = dout + static_cast<size_t>(b) * L * C + head * HD;
+  uint32_t oh[8][4], ol[8][4];   // dO (hi, lo): the A operand of dP = dO V^T
+  load_a_tf32(gbase, C, q0 + BQ * wg, L, oh, ol);
+  float dd[2], ll[2];
+  {
+    // D = rowsum(dO * O): this thread's 16 columns of each row, then the quad
+    float acc[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = ty + 8 * i;
+    for (int kk = 0; kk < 8; ++kk) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float& p = at_swz(sP, r, tx + 16 * j);
-          p *= x[i][j] - sD[r];
+      for (int a = 0; a < 4; ++a) {
+        const int row = r0 + 8 * (a & 1);
+        if (row < L) {
+          const size_t off = row * C + 8 * kk + lane % 4 + 4 * (a >> 1);
+          acc[a & 1] = fmaf(gbase[off], obase[off], acc[a & 1]);
         }
       }
     }
-    __syncthreads();
-    mm_nn(dq, sP, sK, tx, ty, 8 * half, 8 * half + 8);
-    __syncthreads();   // K, V and dS are read: the buffers take tile t + 1
-    if (t + 1 < nt) {
-      load_tile_async(sK, base + (H + h) * HD, rs, (t + 1) * FT, L);
-      load_tile_async(sV, base + (2 * H + h) * HD, rs, (t + 1) * FT, L);
-    }
-    cp_commit();
-  }
-  // dQ = half 0's sum over the first 32 keys of each tile + half 1's
-  if (half == 1)
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      *reinterpret_cast<float4*>(sP + (ty + 8 * i) * HD + 4 * tx) =
-          make_float4(dq[i][0], dq[i][1], dq[i][2], dq[i][3]);
-  __syncthreads();
-  if (half == 0) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = q0 + ty + 8 * i;
-      if (row >= L) continue;
-      const float4 o = *reinterpret_cast<const float4*>(sP + (ty + 8 * i) * HD + 4 * tx);
-      *reinterpret_cast<float4*>(dqkv + (static_cast<size_t>(b) * L + row) * rs + h * HD +
-                                 4 * tx) =
-          make_float4((dq[i][0] + o.x) * scale, (dq[i][1] + o.y) * scale,
-                      (dq[i][2] + o.z) * scale, (dq[i][3] + o.w) * scale);
+    for (int r = 0; r < 2; ++r) {
+      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 1);
+      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 2);
+      const int row = r0 + 8 * r;
+      dd[r] = acc[r];
+      ll[r] = row < L ? lse[stat + row] * LOG2E : CUDART_INF_F;   // padded rows: P = 0
+      if (row < L && lane % 4 == 0) Dbuf[stat + row] = acc[r];
     }
   }
-}
+  const float sl2 = scale * LOG2E;
+  auto release = [&](uint32_t bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
 
-// dK and dV for one (key tile, head, batch); reads D from the dQ kernel.
-// Per query tile: half 0 forms S^T = K Q^T and P^T, then dV += P^T dO;
-// half 1 forms dP^T = V dO^T, then dS^T = P^T (dP^T - D) and dK += dS^T Q.
-__global__ void __launch_bounds__(FTHREADS, 2)
-flash_bwd_dkv_f32(const float* __restrict__ qkv, const float* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ Dbuf,
-                  float* __restrict__ dqkv, int L, int H, float scale) {
-  extern __shared__ float4 fsm4[];
-  float* sK = reinterpret_cast<float*>(fsm4);
-  float* sV = sK + FTILE;
-  float* sQ = sV + FTILE;
-  float* sdO = sQ + FTILE;
-  float* sP = sdO + FTILE;   // P^T: key rows, query columns
-  float* sS = sP + FTILE;    // dS^T
-  float* sL = sS + FTILE;
-  float* sD = sL + FT;
-  const int half = threadIdx.x / HALF, tx = threadIdx.x & 15, ty = (threadIdx.x % HALF) >> 4;
-  const int k0 = blockIdx.x * FT, h = blockIdx.y, b = blockIdx.z;
-  const int nq = (L + FT - 1) / FT;
-  const size_t rs = static_cast<size_t>(3) * H * HD, os = static_cast<size_t>(H) * HD;
-  const float* base = qkv + static_cast<size_t>(b) * L * rs;
-  const float* gbase = dout + static_cast<size_t>(b) * L * os + h * HD;
-  const size_t stat = (static_cast<size_t>(b) * H + h) * L;
-  load_tile_async(sK, base + (H + h) * HD, rs, k0, L);
-  load_tile_async(sV, base + (2 * H + h) * HD, rs, k0, L);
-  load_tile_async(sQ, base + h * HD, rs, 0, L);
-  load_tile_async(sdO, gbase, os, 0, L);
-  cp_commit();
-  float acc[8][4] = {};   // half 0: dV, half 1: dK
-  for (int t = 0; t < nq; ++t) {
-    // the tile's statistics (the last reads of the previous ones were
-    // before the previous iteration's last barrier)
-    if (threadIdx.x < 2 * FT) {
-      const int row = t * FT + (threadIdx.x & 63);
-      if (threadIdx.x < FT)
-        sL[threadIdx.x] = row < L ? lse[stat + row] : CUDART_INF_F;   // padded rows: P = 0
-      else
-        sD[threadIdx.x - FT] = row < L ? Dbuf[stat + row] : 0.f;
-    }
-    cp_wait<0>();
-    __syncthreads();
-    // rows are this CTA's keys ty + 8 i, columns the queries tx + 16 j; keys
-    // at or past L have zero rows and are never written: no mask needed
-    float x[8][4] = {};   // half 0: S^T, half 1: dP^T
-    mm_nt(x, half ? sV : sK, half ? sdO : sQ, tx, ty);
-    if (half == 0) {
+  float dq[32], dqt[32], s[32], dp[32];
+  uint32_t sh[8][4], sl[8][4];   // dS (hi, lo): the A operand of dQ_t = dS K
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float lq = sL[tx + 16 * j];
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  uint64_t dqh = desc_b128(base + 2 * wg * F_TILE, 16, 1024);
+  uint64_t dql = desc_b128(base + (2 * wg + 1) * F_TILE, 16, 1024);
+  mbar_wait(barQ, 0);
+  for (int t = 0; t < nt; ++t) {
+    const int st = t % 2;
+    mbar_wait(fullKV + 8 * st, (t / 2) & 1);
+    uint64_t kh = desc_b128(sKV + 4 * st * F_TILE, 16, 1024);
+    uint64_t kl = desc_b128(sKV + (4 * st + 1) * F_TILE, 16, 1024);
+    uint64_t vh = desc_b128(sKV + (4 * st + 2) * F_TILE, 16, 1024);
+    uint64_t vl = desc_b128(sKV + (4 * st + 3) * F_TILE, 16, 1024);
+    asm volatile("" : "+l"(kh), "+l"(kl), "+l"(vh), "+l"(vl), "+l"(dqh), "+l"(dql));
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          at_swz(sP, ty + 8 * i, tx + 16 * j) = expf(fmaf(x[i][j], scale, -lq));
-      }
+    for (int i = 0; i < 32; ++i) {
+      s[i] = 0.f;
+      dp[i] = 0.f;
     }
-    __syncthreads();
-    if (half == 0) {
-      mm_nn(acc, sP, sdO, tx, ty, 0, FT / 4);   // dV += P^T dO
-    } else {
+    reg_fence(s);
+    reg_fence(dp);
+    reg_fence(oh);
+    reg_fence(ol);
+    wg_fence();
+    wgmma_s_tf32(s, dqh, dql, kh, kl);
+    wgmma_pv_tf32(dp, oh, ol, vh, vl);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    reg_fence(oh);
+    reg_fence(ol);
+    release(emptyKV + 8 * st);
+    // dS = P (dP - D); keys at or past L: their zero rows give S = 0, so P is masked
+    const int k0 = t * BK;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int q = tx + 16 * j;
-        const float dq = sD[q];
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      float p = exp2_approx(fmaf(s[i], sl2, -ll[r]));
+      if (k0 + BK > L && k0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1) >= L) p = 0.f;
+      split_to_a(p * (dp[i] - dd[r]), i, sh, sl);
+    }
+    mbar_wait(fullKT, t & 1);
+    uint64_t th = desc_b128(sKT, 16, 1024), tl = desc_b128(sKT + F_TILE, 16, 1024);
+    asm volatile("" : "+l"(th), "+l"(tl));
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          at_swz(sS, ty + 8 * i, q) = at_swz(sP, ty + 8 * i, q) * (x[i][j] - dq);
-      }
-      half_sync(1);
-      mm_nn(acc, sS, sQ, tx, ty, 0, FT / 4);    // dK += dS^T Q
-    }
-    __syncthreads();   // Q, dO, P^T and dS^T are read: the buffers take tile t + 1
-    if (t + 1 < nq) {
-      load_tile_async(sQ, base + h * HD, rs, (t + 1) * FT, L);
-      load_tile_async(sdO, gbase, os, (t + 1) * FT, L);
-    }
-    cp_commit();
+    for (int i = 0; i < 32; ++i) dqt[i] = 0.f;
+    reg_fence(dqt);
+    reg_fence(sh);
+    reg_fence(sl);
+    wg_fence();
+    wgmma_pv_tf32(dqt, sh, sl, th, tl);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(dqt);
+    reg_fence(sh);
+    reg_fence(sl);
+    release(emptyKT);
+    add_to(dq, dqt);
   }
+  const size_t rs = 3 * C;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = k0 + ty + 8 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
     if (row >= L) continue;
-    const float s = half ? scale : 1.f;
-    *reinterpret_cast<float4*>(dqkv + (static_cast<size_t>(b) * L + row) * rs +
-                               ((half ? 1 : 2) * H + h) * HD + 4 * tx) =
-        make_float4(acc[i][0] * s, acc[i][1] * s, acc[i][2] * s, acc[i][3] * s);
+    float* dst = dqkv + (static_cast<size_t>(b) * L + row) * rs + head * HD + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(dq[4 * j + 2 * r] * scale, dq[4 * j + 2 * r + 1] * scale);
   }
 }
 
-constexpr int DQ_F32_SMEM = (5 * FTILE + 2 * FT) * 4;
-constexpr int DKV_F32_SMEM = (6 * FTILE + 2 * FT) * 4;
+// shared memory of the float32 dK/dV kernel: two-stage rings of Q and dO,
+// one stage each of dO^T and Q^T (each tile hi, lo), two P^T hand-over
+// buffers (64 x 64 floats each, in the accumulator's thread order), the
+// per-query statistics of each stage of the two rings (LSE log2 e beside
+// Q, D beside dO), then the mbarriers
+constexpr uint32_t DKV_OFF_DO = 2 * 2 * F_TILE;
+constexpr uint32_t DKV_OFF_QT = DKV_OFF_DO + 2 * 2 * F_TILE;
+constexpr uint32_t DKV_OFF_DOT = DKV_OFF_QT + 2 * F_TILE;
+constexpr uint32_t DKV_OFF_X = DKV_OFF_DOT + 2 * F_TILE;
+constexpr uint32_t DKV_OFF_STAT = DKV_OFF_X + 2 * F_TILE;
+constexpr uint32_t DKV_OFF_BAR = DKV_OFF_STAT + 2 * 2 * BQ * 4;
+constexpr uint32_t DKV_F32_SMEM = DKV_OFF_BAR + 8 * 12 + 1024;   // + alignment slack
+
+// named barriers of the P^T hand-over (0 is __syncthreads): buffer b is
+// full at 1 + b and free again at 3 + b, each met by both consumer
+// warpgroups (warpgroup 0 arrives on "full" and waits on "free")
+constexpr int XFULL_BAR = 1, XFREE_BAR = 3;
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(2 * THREADS) : "memory");
+}
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(2 * THREADS) : "memory");
+}
+
+// dK and dV for one (64-key tile, head, batch); reads D from the dQ kernel.
+// The two consumer warpgroups split the products: warpgroup 0 holds K (hi,
+// lo) as register A fragments and per query tile forms S^T = K Q^T, P^T =
+// exp2(S^T scale log2 e - LSE log2 e), hands P^T to warpgroup 1 through
+// shared memory and sums dV_t = P^T dO (dO^T from the pre-pass); warpgroup
+// 1 holds V and forms dP^T = V dO^T, dS^T = P^T (dP^T - D) and dK_t =
+// dS^T Q (Q^T from the pre-pass). Every product has its A operand in
+// registers; dK += dK_t and dV += dV_t in float32. Two hand-over buffers
+// and one producer thread for each warpgroup's rings let warpgroup 0 run
+// up to two query tiles ahead, so each warpgroup's elementwise work runs
+// under the other's products (with one buffer both waited together each
+// tile: 3% slower).
+__global__ void __launch_bounds__(F_THREADS, 1)
+flash_bwd_dkv_f32(const __grid_constant__ CUtensorMap rm, const __grid_constant__ CUtensorMap tr,
+                  const float* __restrict__ qkv, const float* __restrict__ lse,
+                  const float* __restrict__ Dbuf, float* __restrict__ dqkv, int L, int H,
+                  float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base, sdO = base + DKV_OFF_DO, sQT = base + DKV_OFF_QT;
+  const uint32_t sdOT = base + DKV_OFF_DOT;
+  float* sX = reinterpret_cast<float*>(smem_raw + (base - raw) + DKV_OFF_X);
+  float* sStat = reinterpret_cast<float*>(smem_raw + (base - raw) + DKV_OFF_STAT);
+  const uint32_t fullQ = base + DKV_OFF_BAR, emptyQ = fullQ + 16, fulldO = emptyQ + 16;
+  const uint32_t emptydO = fulldO + 16, fullQT = emptydO + 16, emptyQT = fullQT + 8;
+  const uint32_t fulldOT = emptyQT + 8, emptydOT = fulldOT + 8;
+  const int tid = threadIdx.x, wg = tid / THREADS;
+  const int k0 = blockIdx.x * BK, head = blockIdx.y, b = blockIdx.z;
+  const int BH = gridDim.y * gridDim.z, bh = b * gridDim.y + head;
+  const int nq = (L + BQ - 1) / BQ;
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      // the TMA's and the 32 lanes that write the stage's statistics
+      mbar_init_count(fullQ + 8 * s, 1 + 32);
+      mbar_init_count(fulldO + 8 * s, 1 + 32);
+      mbar_init_count(emptyQ + 8 * s, 4);    // the warps of the warpgroup that reads it
+      mbar_init_count(emptydO + 8 * s, 4);
+    }
+    mbar_init(fullQT);
+    mbar_init(fulldOT);
+    mbar_init_count(emptyQT, 4);
+    mbar_init_count(emptydOT, 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // the producer: warp 0 keeps warpgroup 0's rings (Q with the tile's
+    // LSE log2 e, +inf past L so that P = 0; dO^T), warp 1 warpgroup 1's
+    // (dO with D, 0 past L; Q^T); per query tile j the two-stage ring's
+    // stage, then the single stage. The statistics come through shared
+    // memory: read from device memory in each consumer thread, their
+    // latency cost 0.7 of 1.8 ms.
+    setmaxnreg_dec<40>();
+    const int w = (tid - 2 * THREADS) / 32, lane = tid % 32;
+    if (w < 2) {
+      const uint32_t ring = w == 0 ? sQ : sdO, single = w == 0 ? sdOT : sQT;
+      const uint32_t full = w == 0 ? fullQ : fulldO, empty = w == 0 ? emptyQ : emptydO;
+      const uint32_t full1 = w == 0 ? fulldOT : fullQT, empty1 = w == 0 ? emptydOT : emptyQT;
+      const int rop = w == 0 ? OP_Q : OP_DO, top = w == 0 ? TR_DO : TR_Q;
+      const float* src = (w == 0 ? lse : Dbuf) + (static_cast<size_t>(b) * H + head) * L;
+      const float mul = w == 0 ? LOG2E : 1.f, pad = w == 0 ? CUDART_INF_F : 0.f;
+      for (int j = 0; j < nq; ++j) {
+        const int st = j % 2;
+        if (j >= 2) mbar_wait(empty + 8 * st, (j / 2 - 1) & 1);
+        float* stats = sStat + (2 * w + st) * BQ;
+        for (int r = lane; r < BQ; r += 32) {
+          const int q = j * BQ + r;
+          stats[r] = q < L ? src[q] * mul : pad;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(full + 8 * st, 2 * F_TILE);
+          for (int part = 0; part < 2; ++part)
+            tma_tile_f32(ring + (2 * st + part) * F_TILE, &rm, full + 8 * st, 0, j * BQ,
+                         (2 * rop + part) * BH + bh);
+        }
+        mbar_arrive(full + 8 * st);
+        if (lane == 0) {
+          if (j >= 1) mbar_wait(empty1, (j - 1) & 1);
+          mbar_expect_tx(full1, 2 * F_TILE);
+          for (int part = 0; part < 2; ++part)
+            tma_tile_f32(single + part * F_TILE, &tr, full1, j * BQ, 0,
+                         (2 * top + part) * BH + bh);
+        }
+        __syncwarp();
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<232>();
+
+  const int warp = (tid % THREADS) / 32, lane = tid % 32, ltid = tid % THREADS;
+  const size_t C = static_cast<size_t>(H) * HD, rs = 3 * C;
+  const float sl2 = scale * LOG2E;
+  auto release = [&](uint32_t bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // K (warpgroup 0) or V (warpgroup 1) of this CTA's keys, hi and lo
+  uint32_t ah[8][4], al[8][4];
+  load_a_tf32(qkv + static_cast<size_t>(b) * L * rs + ((1 + wg) * H + head) * HD, rs, k0, L, ah,
+              al);
+  float acc[32], part[32], x[32], stq[16];   // dV or dK, this tile's share, S^T or dP^T
+  uint32_t xh[8][4], xl[8][4];                // P^T or dS^T (hi, lo)
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int t = 0; t < nq; ++t) {
+    const int st = t % 2;
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1)
+    const uint32_t ring = wg == 0 ? sQ : sdO;
+    const uint32_t full = wg == 0 ? fullQ : fulldO, empty = wg == 0 ? emptyQ : emptydO;
+    mbar_wait(full + 8 * st, (t / 2) & 1);
+    uint64_t bh_ = desc_b128(ring + 2 * st * F_TILE, 16, 1024);
+    uint64_t bl_ = desc_b128(ring + (2 * st + 1) * F_TILE, 16, 1024);
+    asm volatile("" : "+l"(bh_), "+l"(bl_));
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = 0.f;
+    reg_fence(x);
+    reg_fence(ah);
+    reg_fence(al);
+    wg_fence();
+    wgmma_pv_tf32(x, ah, al, bh_, bl_);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(x);
+    reg_fence(ah);
+    reg_fence(al);
+    // the stage's statistics at this thread's query columns 8 j + 2 (lane % 4) + e
+    const float* sst = sStat + (2 * wg + st) * BQ + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 v = *reinterpret_cast<const float2*>(sst + 8 * j);
+      stq[2 * j] = v.x;
+      stq[2 * j + 1] = v.y;
+    }
+    release(empty + 8 * st);
+    uint32_t bt;   // the transposed tile of this warpgroup's second product
+    float* xb = sX + (t & 1) * 32 * THREADS;   // this tile's hand-over buffer
+    if (wg == 0) {
+      if (t >= 2) named_sync(XFREE_BAR + (t & 1));
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float p = exp2_approx(fmaf(x[i], sl2, -stq[2 * (i >> 2) + (i & 1)]));
+        xb[i * THREADS + ltid] = p;
+        split_to_a(p, i, xh, xl);
+      }
+      named_arrive(XFULL_BAR + (t & 1));
+      mbar_wait(fulldOT, t & 1);
+      bt = sdOT;
+    } else {
+      named_sync(XFULL_BAR + (t & 1));
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        split_to_a(xb[i * THREADS + ltid] * (x[i] - stq[2 * (i >> 2) + (i & 1)]), i, xh, xl);
+      if (t + 2 < nq) named_arrive(XFREE_BAR + (t & 1));
+      mbar_wait(fullQT, t & 1);
+      bt = sQT;
+    }
+    // dV_t = P^T dO (warpgroup 0) or dK_t = dS^T Q (warpgroup 1)
+    uint64_t th = desc_b128(bt, 16, 1024), tl = desc_b128(bt + F_TILE, 16, 1024);
+    asm volatile("" : "+l"(th), "+l"(tl));
+#pragma unroll
+    for (int i = 0; i < 32; ++i) part[i] = 0.f;
+    reg_fence(part);
+    reg_fence(xh);
+    reg_fence(xl);
+    wg_fence();
+    wgmma_pv_tf32(part, xh, xl, th, tl);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(part);
+    reg_fence(xh);
+    reg_fence(xl);
+    release(wg == 0 ? emptydOT : emptyQT);
+    add_to(acc, part);
+  }
+  // warpgroup 0 writes dV, warpgroup 1 dK (times the scale); keys at or
+  // past L are never written
+  const float s = wg == 0 ? 1.f : scale;
+  const int slot = (wg == 0 ? 2 : 1) * H + head;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + 16 * warp + lane / 4 + 8 * r;
+    if (row >= L) continue;
+    float* dst = dqkv + (static_cast<size_t>(b) * L + row) * rs + slot * HD + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(acc[4 * j + 2 * r] * s, acc[4 * j + 2 * r + 1] * s);
+  }
+}
 
 // dynamic shared memory up to `bytes`, and all of the SM's unified memory
 // as shared memory (several CTAs per SM)
@@ -1649,24 +1863,55 @@ extern "C" int flash_attn_qkv_forward_f32(const void* qkv, void* out, void* lse,
   return (int)cudaGetLastError();
 }
 
+// rows of each scratch plane of the float32 backward: L rounded up to 128
+extern "C" int flash_attn_bwd_f32_rows(int L) { return flash_attn_f32_rows(L); }
+
+namespace {
+// the tensor maps of the float32 backward's scratch (see RM_PLANES): the
+// row-major planes and the transposed ones, boxes of 32 floats x 64 rows
+int bwd_f32_maps(void* ws, int BH, int Lp, CUtensorMap* mrm, CUtensorMap* mtr) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  float* rm = static_cast<float*>(ws);
+  float* tr = rm + static_cast<size_t>(RM_PLANES) * BH * Lp * HD;
+  if (!encode_f32_map(encode, mrm, rm, HD, Lp, RM_PLANES * BH) ||
+      !encode_f32_map(encode, mtr, tr, Lp, HD, TR_PLANES * BH))
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+}  // namespace
+
 // dQ into dqkv's q slots and D = rowsum(dO * O) into D; dtype 0: float32,
-// 1: bf16 (qkv, out, dout and dqkv)
+// 1: bf16 (qkv, out, dout and dqkv). float32 takes ws, a scratch of
+// 14 B H flash_attn_bwd_f32_rows(L) 64 floats, 16-byte aligned, which the
+// call's pre-pass fills and the dK/dV call reads; bf16 ignores it.
 extern "C" int flash_attn_qkv_backward_dq(const void* qkv, const void* out, const void* dout,
-                                          const void* lse, void* D, void* dqkv, int B, int L,
-                                          int H, float scale, int dtype, void* stream) {
+                                          const void* lse, void* D, void* dqkv, void* ws, int B,
+                                          int L, int H, float scale, int dtype, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(D);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((L + FT - 1) / FT, H, B);
   if (dtype == 0) {
-    cudaError_t err = prepare(flash_bwd_dq_f32, DQ_F32_SMEM);
+    if (ws == nullptr) return (int)cudaErrorInvalidValue;
+    const int Lp = flash_attn_bwd_f32_rows(L), BH = B * H;
+    CUtensorMap mrm, mtr;
+    int e = bwd_f32_maps(ws, BH, Lp, &mrm, &mtr);
+    if (e != 0) return e;
+    cudaError_t err = prepare(flash_bwd_dq_f32, (int)DQ_F32_SMEM);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_f32<<<grid, FTHREADS, DQ_F32_SMEM, s>>>(
-        static_cast<const float*>(qkv), static_cast<const float*>(out),
-        static_cast<const float*>(dout), l, d, static_cast<float*>(dqkv), L, H, scale);
+    float* rm = static_cast<float*>(ws);
+    flash_bwd_f32_split<<<dim3(Lp / FT, BH, 4), FTHREADS, 0, s>>>(
+        static_cast<const float*>(qkv), static_cast<const float*>(dout), rm,
+        rm + static_cast<size_t>(RM_PLANES) * BH * Lp * HD, L, H, Lp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dq_f32<<<dim3(Lp / F_ROWS, H, B), F_THREADS, DQ_F32_SMEM, s>>>(
+        mrm, mtr, static_cast<const float*>(out), static_cast<const float*>(dout), l, d,
+        static_cast<float*>(dqkv), L, H, scale);
     return (int)cudaGetLastError();
   }
+  const dim3 grid((L + FT - 1) / FT, H, B);
   CUtensorMap mq, mo;
   int e = backward_maps(qkv, dout, B, L, H, &mq, &mo);
   if (e != 0) return e;
@@ -1678,21 +1923,25 @@ extern "C" int flash_attn_qkv_backward_dq(const void* qkv, const void* out, cons
   return (int)cudaGetLastError();
 }
 
-// dK and dV into dqkv's k and v slots; D from flash_attn_qkv_backward_dq
+// dK and dV into dqkv's k and v slots; D (and in float32 the scratch ws)
+// from flash_attn_qkv_backward_dq
 extern "C" int flash_attn_qkv_backward_dkv(const void* qkv, const void* dout, const void* lse,
-                                           const void* D, void* dqkv, int B, int L, int H,
-                                           float scale, int dtype, void* stream) {
+                                           const void* D, void* dqkv, void* ws, int B, int L,
+                                           int H, float scale, int dtype, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(D);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((L + FT - 1) / FT, H, B);
   if (dtype == 0) {
-    cudaError_t err = prepare(flash_bwd_dkv_f32, DKV_F32_SMEM);
+    if (ws == nullptr) return (int)cudaErrorInvalidValue;
+    CUtensorMap mrm, mtr;
+    int e = bwd_f32_maps(ws, B * H, flash_attn_bwd_f32_rows(L), &mrm, &mtr);
+    if (e != 0) return e;
+    cudaError_t err = prepare(flash_bwd_dkv_f32, (int)DKV_F32_SMEM);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkv_f32<<<grid, FTHREADS, DKV_F32_SMEM, s>>>(
-        static_cast<const float*>(qkv), static_cast<const float*>(dout), l, d,
-        static_cast<float*>(dqkv), L, H, scale);
+    flash_bwd_dkv_f32<<<grid, F_THREADS, DKV_F32_SMEM, s>>>(
+        mrm, mtr, static_cast<const float*>(qkv), l, d, static_cast<float*>(dqkv), L, H, scale);
     return (int)cudaGetLastError();
   }
   CUtensorMap mq, mo;

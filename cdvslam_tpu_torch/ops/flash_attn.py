@@ -11,10 +11,13 @@ passes on wgmma, after a pre-pass that splits q, k and v) or raises.
 ``flash_attention_qkv_grad(qkv, heads)`` is the same function under
 autograd: on the card a ``torch.autograd.Function`` whose forward launches
 the kernel with the per-row log-sum-exp saved and whose backward launches
-the two backward kernels (dQ, then dK and dV; bf16 on the tensor cores,
-float32 on FP32 FMA) and returns the gradient packed as (B, L, 3 C); on
-CPU tensors ``attention_qkv_plain`` under autograd. ``attention_qkv_backward_plain`` is the backward written out by
-formula, for the checks on the card.
+the two backward kernels (dQ, then dK and dV; bf16 on wgmma, float32 in
+three TF32 passes on wgmma after a pre-pass, launched by the dQ call, that
+splits q, k, v and dout and transposes q, k and dout into a scratch the
+dK/dV call reads too) and returns the gradient packed as (B, L, 3 C); on
+CPU tensors ``attention_qkv_plain`` under autograd.
+``attention_qkv_backward_plain`` is the backward written out by formula,
+for the checks on the card.
 
 Launch counts: ``LAUNCHES`` (bf16 forward), ``LAUNCHES_F32`` (float32
 forward), ``LAUNCHES_DQ`` and ``LAUNCHES_DKV`` (the backward kernels).
@@ -43,20 +46,26 @@ def attention_qkv_plain(qkv, heads: int):
     return torch.matmul(attn, v).transpose(1, 2).reshape(B, L, C)
 
 
+def _compute_type(x):
+    """float64 for float64 inputs, else float32."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def attention_qkv_backward_plain(qkv, out, lse, dout, heads: int):
     """The gradient of ``attention_qkv_plain`` with respect to qkv, by formula,
-    in float32: P = exp(q k^T s - lse), dV = P^T dO, dP = dO V^T,
-    D = rowsum(dO * O), dS = P (dP - D), dQ = s dS K, dK = s dS^T Q, with
-    s = d^-1/2. qkv (B, L, 3 C), out and dout (B, L, C), lse (B, heads, L)
-    float32 -> dqkv (B, L, 3 C) in qkv's dtype."""
+    in float32 (float64 for a float64 qkv): P = exp(q k^T s - lse),
+    dV = P^T dO, dP = dO V^T, D = rowsum(dO * O), dS = P (dP - D),
+    dQ = s dS K, dK = s dS^T Q, with s = d^-1/2. qkv (B, L, 3 C), out and
+    dout (B, L, C), lse (B, heads, L) -> dqkv (B, L, 3 C) in qkv's dtype."""
     B, L, C3 = qkv.shape
     C = C3 // 3
     d = C // heads
     s = d ** -0.5
-    q, k, v = qkv.float().reshape(B, L, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
-    o = out.float().reshape(B, L, heads, d).transpose(1, 2)
-    do = dout.float().reshape(B, L, heads, d).transpose(1, 2)
-    p = torch.exp(torch.matmul(q, k.transpose(-1, -2)) * s - lse.float()[..., None])
+    ct = _compute_type(qkv)
+    q, k, v = qkv.to(ct).reshape(B, L, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+    o = out.to(ct).reshape(B, L, heads, d).transpose(1, 2)
+    do = dout.to(ct).reshape(B, L, heads, d).transpose(1, 2)
+    p = torch.exp(torch.matmul(q, k.transpose(-1, -2)) * s - lse.to(ct)[..., None])
     dv = torch.matmul(p.transpose(-1, -2), do)
     dp = torch.matmul(do, v.transpose(-1, -2))
     ds = p * (dp - (do * o).sum(-1, keepdim=True))
@@ -67,10 +76,12 @@ def attention_qkv_backward_plain(qkv, out, lse, dout, heads: int):
 
 
 def attention_lse_plain(qkv, heads: int):
-    """The per-row log-sum-exp of the scaled scores, (B, heads, L) float32."""
+    """The per-row log-sum-exp of the scaled scores, (B, heads, L), in
+    float32 (float64 for a float64 qkv)."""
     B, L, C3 = qkv.shape
     d = C3 // 3 // heads
-    q, k, _ = qkv.float().reshape(B, L, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+    q, k, _ = qkv.to(_compute_type(qkv)).reshape(B, L, 3, heads, d).permute(
+        2, 0, 3, 1, 4).unbind(0)
     return torch.logsumexp(torch.matmul(q, k.transpose(-1, -2)) * (d ** -0.5), dim=-1)
 
 
@@ -129,6 +140,18 @@ def flash_attention_qkv(qkv, heads: int):
     return _forward(qkv, heads, with_lse=False)[0]
 
 
+def backward_scratch(qkv, heads: int):
+    """The float32 backward's scratch on qkv's card (None for bf16): Q, K,
+    V and dO split into TF32 hi and lo parts row-major, and Q^T, K^T and
+    dO^T split and permuted, 14 planes of flash_attn_bwd_f32_rows(L) x 64
+    floats per (batch, head)."""
+    if qkv.dtype != torch.float32:
+        return None
+    B, L, _ = qkv.shape
+    rows = native.load("flash_attn").flash_attn_bwd_f32_rows(L)
+    return torch.empty(14 * B * heads * rows * 64, dtype=torch.float32, device=qkv.device)
+
+
 def flash_attention_qkv_backward(qkv, out, lse, dout, heads: int):
     """dqkv (B, L, 3 C) in qkv's type from the two backward kernels: dQ (its
     prologue stores D = rowsum(dO * O)), then dK and dV. Same layouts as
@@ -151,16 +174,18 @@ def flash_attention_qkv_backward(qkv, out, lse, dout, heads: int):
         return dqkv
     D = torch.empty((B, heads, L), dtype=torch.float32, device=qkv.device)
     lib = native.load("flash_attn")
+    ws = backward_scratch(qkv, heads)
+    wp = ws.data_ptr() if ws is not None else None
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     scale, dt = float(64 ** -0.5), _DTYPES[qkv.dtype]
     err = lib.flash_attn_qkv_backward_dq(qkv.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                                         lse.data_ptr(), D.data_ptr(), dqkv.data_ptr(),
+                                         lse.data_ptr(), D.data_ptr(), dqkv.data_ptr(), wp,
                                          B, L, heads, scale, dt, stream)
     native.check(err, "flash_attn_qkv_backward_dq")
     LAUNCHES_DQ.count += 1
     err = lib.flash_attn_qkv_backward_dkv(qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                                          D.data_ptr(), dqkv.data_ptr(), B, L, heads, scale,
-                                          dt, stream)
+                                          D.data_ptr(), dqkv.data_ptr(), wp, B, L, heads,
+                                          scale, dt, stream)
     native.check(err, "flash_attn_qkv_backward_dkv")
     LAUNCHES_DKV.count += 1
     return dqkv

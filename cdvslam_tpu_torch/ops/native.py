@@ -36,9 +36,10 @@ SIGNATURES = {
                    "flash_attn_qkv_forward_f32": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
                                                   _P],
                    "flash_attn_f32_rows": [_I],
-                   "flash_attn_qkv_backward_dq": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                   "flash_attn_bwd_f32_rows": [_I],
+                   "flash_attn_qkv_backward_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                                   ctypes.c_float, _I, _P],
-                   "flash_attn_qkv_backward_dkv": [_P, _P, _P, _P, _P, _I, _I, _I,
+                   "flash_attn_qkv_backward_dkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                                    ctypes.c_float, _I, _P]},
 }
 

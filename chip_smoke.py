@@ -8,8 +8,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
   0  the card (nvidia-smi), torch and CUDA versions; builds both kernels
      with nvcc for sm_90a and prints the build time, ptxas's register and
      spill lines, and the HGMMA instructions of each bf16 K2 kernel and of
-     the float32 forward in the built library (cuobjdump -sass): fails if
-     either bf16 backward kernel or the float32 forward has none
+     the float32 forward and backward kernels in the built library
+     (cuobjdump -sass): fails if either bf16 backward kernel or any
+     float32 K2 kernel (forward, dQ, dK/dV) has none
   1  corr kernel (K1, both pyramid levels in one launch) against its plain
      version at the main-path shapes (E = 9600; level 2 at coords / 4) on
      the phase-1 draw, centers past every border, near-rigid patches and
@@ -33,7 +34,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
      and both together's, and the float32 forward at the SLAM shape (B 1,
      L 1891) against SDPA's float32 forward ("2-train-times"). Float32
      bounds: three TF32 passes on the tensor cores, the FP32-FMA figure
-     beside it
+     beside it. The float32 backward's error against the formula in
+     float64 on the same values is recorded beside its 1e-4 rule
   3  bundle adjustment run twice at E = 9600, K = 2688: bitwise equal
   4  the main path: SLAM(get_cfg(), "cdv", 480, 752) with seeded random
      weights and 8 seeded random frames cycled, each prefetched one frame
@@ -231,7 +233,8 @@ def _hgmma_counts(lib):
 
 
 BF16_K2 = ("flash_qkv_kernel", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
-F32_K2 = ("flash_f32_kernel",)   # the float32 forward: three TF32 passes on wgmma
+# the float32 forward and backward: three TF32 passes on wgmma
+F32_K2 = ("flash_f32_kernel", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 
 
 def phase0():
@@ -257,7 +260,7 @@ def phase0():
     if not (hgmma["flash_bwd_dq_bf16"] and hgmma["flash_bwd_dkv_bf16"]):
         raise SystemExit(f"phase 0: a bf16 backward kernel has no HGMMA: {hgmma}")
     if not all(hgmma[k] for k in F32_K2):
-        raise SystemExit(f"phase 0: the float32 forward has no HGMMA: {hgmma}")
+        raise SystemExit(f"phase 0: a float32 K2 kernel has no HGMMA: {hgmma}")
     return smi
 
 
@@ -452,26 +455,40 @@ def _attn_flops(B, L, h=6, d=64):
     return 4 * L * L * d * h * B
 
 
-def _bwd_native(which, qkv, out, lse, dout, D, dqkv, lib=None):
-    """One launch of a backward kernel through the C entry point (``dq``
-    also writes D, which ``dkv`` reads), for timing each kernel alone; of
-    the current source, or of another build of it (``lib``)."""
+def _bwd_native(which, qkv, out, lse, dout, D, dqkv, lib=None, ws=None):
+    """One call of a backward entry point (``dq`` also writes D, and in
+    float32 fills the scratch ``ws``, which ``dkv`` reads), for timing each
+    alone; of the current source, or of another build of it (``lib``).
+    ``ws``: the scratch (None: a fresh one for float32), or False for a
+    source whose entry points take none (before the three-pass backward)."""
     import torch
-    from cdvslam_tpu_torch.ops import native
+    from cdvslam_tpu_torch.ops import flash_attn, native
     if lib is None:
         lib = native.load("flash_attn")
     B, L, C3 = qkv.shape
     stream = torch.cuda.current_stream().cuda_stream
     dt = 0 if qkv.dtype == torch.float32 else 1
+    if ws is None:
+        ws = flash_attn.backward_scratch(qkv, 6)
+    scratch = [] if ws is False else [ws.data_ptr() if ws is not None else None]
     if which == "dq":
         err = lib.flash_attn_qkv_backward_dq(qkv.data_ptr(), out.data_ptr(), dout.data_ptr(),
                                              lse.data_ptr(), D.data_ptr(), dqkv.data_ptr(),
-                                             B, L, 6, 0.125, dt, stream)
+                                             *scratch, B, L, 6, 0.125, dt, stream)
     else:
         err = lib.flash_attn_qkv_backward_dkv(qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                                              D.data_ptr(), dqkv.data_ptr(), B, L, 6, 0.125,
-                                              dt, stream)
+                                              D.data_ptr(), dqkv.data_ptr(), *scratch, B, L, 6,
+                                              0.125, dt, stream)
     native.check(err, which)
+
+
+def _bwd_float64(qkv, dout):
+    """dqkv by the formula in float64, from the float64 output and
+    log-sum-exp of the same values."""
+    from cdvslam_tpu_torch.ops import flash_attn as fa
+    x = qkv.double()
+    return fa.attention_qkv_backward_plain(x, fa.attention_qkv_plain(x, 6),
+                                           fa.attention_lse_plain(x, 6), dout.double(), 6)
 
 
 def _k2_train_case(gen, B, L):
@@ -517,6 +534,8 @@ def _k2_train_case(gen, B, L):
         same = torch.equal(d1, d2)
         rec[f"bwd_{name}_rel"], rec[f"bwd_{name}_bitwise"] = r, same
         good = good and r <= tol and same
+        if name == "f32":   # recorded: the formula in float64 on the same values
+            rec["bwd_f32_rel_f64"] = rel(d1, _bwd_float64(x, g), "bwd_f32_f64")
     torch.cuda.synchronize()
     rec["ok"] = good
     return rec, errs
@@ -542,7 +561,8 @@ def phase2_train():
     from cdvslam_tpu_torch.ops import flash_attn as fa
     gen = torch.Generator(device="cuda").manual_seed(21)
     out = {"phase": "2-train", "checks": {}}
-    worst = {"f32": 0.0, "bf16_lse": 0.0, "bwd_f32": 0.0, "bwd_bf16": 0.0}  # max abs errors
+    worst = {"f32": 0.0, "bf16_lse": 0.0, "bwd_f32": 0.0, "bwd_bf16": 0.0,   # max abs errors
+             "bwd_f32_f64": 0.0}
     ok = True
     for B, L in ((1, 1), (1, 7), (1, 9), (1, 63), (1, 65), (1, 127), (1, 129), (1, 1000),
                  (1, 1891), TRAIN_SHAPE[::2]):
@@ -555,6 +575,7 @@ def phase2_train():
     emit(out)
     if not ok:
         raise SystemExit("phase 2-train: the training kernels disagree with plain")
+    rel_f64 = {key: rec["bwd_f32_rel_f64"] for key, rec in out["checks"].items()}
 
     # times at the training shape
     B, h, L, d = TRAIN_SHAPE
@@ -569,13 +590,14 @@ def phase2_train():
         o, lse = fa._forward(qkv, 6, with_lse=True)
         D = torch.empty((B, h, L), device="cuda")
         dqkv = torch.empty_like(qkv)
+        ws = fa.backward_scratch(qkv, 6)
         q, k, v = (t.detach().requires_grad_(True) for t in
                    qkv.reshape(B, L, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0))
         sd_out = F.scaled_dot_product_attention(q, k, v)
         sd_dout = dout.reshape(B, L, h, d).transpose(1, 2)
         fns = {"fwd": lambda: fa._forward(qkv, 6, with_lse=True),
-               "dq": lambda: _bwd_native("dq", qkv, o, lse, dout, D, dqkv),
-               "dkv": lambda: _bwd_native("dkv", qkv, o, lse, dout, D, dqkv),
+               "dq": lambda: _bwd_native("dq", qkv, o, lse, dout, D, dqkv, ws=ws),
+               "dkv": lambda: _bwd_native("dkv", qkv, o, lse, dout, D, dqkv, ws=ws),
                "sdpa_fwd": lambda: F.scaled_dot_product_attention(q, k, v),
                "sdpa_bwd": lambda: torch.autograd.grad(sd_out, (q, k, v), sd_dout,
                                                        retain_graph=True)}
@@ -621,14 +643,14 @@ def phase2_train():
         if name == "f32":
             times[f"bwd_{name}"]["bound_fma_ms"] = 2.5 * flops / F32_FLOPS * 1e3
         times[f"sdpa_fwd_bwd_{name}_ms"] = med["sdpa_fwd"] + med["sdpa_bwd"]
-        del qkv, dout, o, lse, D, dqkv, q, k, v, sd_out
+        del qkv, dout, o, lse, D, dqkv, ws, q, k, v, sd_out
         torch.cuda.empty_cache()
     times["fwd_f32_slam"] = _f32_forward_slam_times(gen)
     emit({"phase": "2-train-times", "shape": {"B": B, "heads": h, "L": L, "d": d},
           "per": "one call; ms medians of 5 alternating rounds of 3 calls; plain_ms of the "
                  "backward is the formula (both kernels' work); library_ms: SDPA forward, or "
                  "SDPA backward (dq, dk and dv together)", **times})
-    return {"max_abs_err": worst, "times": times}
+    return {"max_abs_err": worst, "times": times, "bwd_f32_rel_f64": rel_f64}
 
 
 def _f32_forward_slam_times(gen):
@@ -1903,13 +1925,16 @@ def _k2_proof_shape():
     dout = torch.randn((B, PROOF_L, 384), generator=gen, device="cuda")
     o, lse = fa._forward(qkv, 6, with_lse=True)
     D, dqkv = torch.empty((B, 6, PROOF_L), device="cuda"), torch.empty_like(qkv)
+    ws = fa.backward_scratch(qkv, 6)
     times = {
         "serving_bf16": (cuda_time(lambda: fa.flash_attention_qkv(serving, 6), 5),
                          cuda_time(lambda: fa.attention_qkv_plain(serving, 6), 5)),
         "fwd_f32": (cuda_time(lambda: fa._forward(qkv, 6, with_lse=True), 5),
                     cuda_time(lambda: fa.attention_qkv_plain(qkv, 6), 5)),
-        "dq_f32": (cuda_time(lambda: _bwd_native("dq", qkv, o, lse, dout, D, dqkv), 5), None),
-        "dkv_f32": (cuda_time(lambda: _bwd_native("dkv", qkv, o, lse, dout, D, dqkv), 5), None)}
+        "dq_f32": (cuda_time(lambda: _bwd_native("dq", qkv, o, lse, dout, D, dqkv, ws=ws), 5),
+                   None),
+        "dkv_f32": (cuda_time(lambda: _bwd_native("dkv", qkv, o, lse, dout, D, dqkv, ws=ws),
+                              5), None)}
     plain_bwd = cuda_time(lambda: fa.attention_qkv_backward_plain(qkv, o, lse, dout, 6), 5)
     return checks, errs, {k: {"ms": ms, "plain_ms": plain if plain is not None else plain_bwd}
                           for k, (ms, plain) in times.items()}
@@ -2503,6 +2528,18 @@ def main():
         rec = t[f"{key}_{dt}"]
         run = "float32" if dt == "f32" else "bf16"
         extra = {"status": "redesigned", "share_of_bound": rec["share_of_bound"]}
+        if key != "fwd" and dt == "f32":
+            extra.update(
+                status="redesigned: three TF32 passes on wgmma",
+                kernels=("flash_bwd_f32_split (pre-pass, in the dQ call) + flash_bwd_dq_f32"
+                         if key == "dq" else "flash_bwd_dkv_f32"),
+                max_abs_err_vs_float64=train_rec["max_abs_err"]["bwd_f32_f64"],
+                rel_err_vs_float64=train_rec["bwd_f32_rel_f64"])
+            if key == "dq":
+                extra["prepass"] = ("flash_bwd_f32_split: Q, K, V and dO split into TF32 hi "
+                                    "and lo parts row-major, Q^T, K^T and dO^T split and "
+                                    "permuted by 8; launched by the dQ entry point, read by both "
+                                    "kernels; its time is inside ms")
         if dt == "f32":   # the proof's float32 training (phase 11)
             at = proof["k2_times"][f"{key}_f32"]
             extra.update(launches_proof_training=proof["train"][src],

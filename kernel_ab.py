@@ -9,7 +9,9 @@
 
 OTHER.cu must export the same C functions as the kernel it stands in for
 (``corr_pyramid_forward``; ``flash_attn_qkv_forward``;
-``flash_attn_qkv_backward_dq`` and ``flash_attn_qkv_backward_dkv``; or
+``flash_attn_qkv_backward_dq`` and ``flash_attn_qkv_backward_dkv``, with
+their scratch argument where OTHER.cu also exports
+``flash_attn_bwd_f32_rows``, without it where it does not; or
 ``flash_attn_qkv_forward_f32``, with its scratch argument where OTHER.cu
 also exports ``flash_attn_f32_rows``, without it where it does not). Both
 are built with the same nvcc flags and called on the same inputs: corr and
@@ -29,7 +31,11 @@ flash_attn_bwd: of dqkv; per shape for flash_attn_f32: of the output and of
 the log-sum-exp), the median ms of each and every round; flash_attn_f32
 adds each output's error against float64 (of the current source, OTHER.cu
 and SDPA) and the device ms of each kernel the current call launches (the
-pre-pass and the main kernel, by torch.profiler).
+pre-pass and the main kernel, by torch.profiler); flash_attn_bwd adds, in
+float32, each source's dqkv error against the formula in float64 (max
+|error| over max |float64|, of dqkv and of each of its q, k and v slots)
+and the device ms of each kernel the current call launches (the pre-pass,
+dQ and dK/dV).
 Needs one CUDA card; imports nothing of JAX.
 """
 import argparse
@@ -126,13 +132,19 @@ def backward_ab(lib):
     """dQ then dK/dV of the current source and of ``lib`` at the sparse
     training shape, in float32 and bf16, with SDPA's backward beside them:
     {"shape": ..., "f32": {...}, "bf16": {...}}, each type with the max
-    difference of dqkv between the sources, medians and rounds."""
+    difference of dqkv between the sources, medians and rounds; float32
+    adds each source's dqkv error against the formula in float64 and the
+    device ms of each kernel the current call launches."""
     import torch
     import torch.nn.functional as F
     import chip_smoke as cs
     from cdvslam_tpu_torch.ops import flash_attn, native
-    for sym in ("flash_attn_qkv_backward_dq", "flash_attn_qkv_backward_dkv"):
-        getattr(lib, sym).argtypes = native.SIGNATURES["flash_attn"][sym]
+    # the three-pass source's entry points take a scratch (the sixth or
+    # seventh argument); a source without flash_attn_bwd_f32_rows takes none
+    with_ws = hasattr(lib, "flash_attn_bwd_f32_rows")
+    for sym, at in (("flash_attn_qkv_backward_dq", 6), ("flash_attn_qkv_backward_dkv", 5)):
+        args = native.SIGNATURES["flash_attn"][sym]
+        getattr(lib, sym).argtypes = args if with_ws else args[:at] + args[at + 1:]
         getattr(lib, sym).restype = ctypes.c_int
     mine = native.load("flash_attn")
     B, h, L, d = cs.TRAIN_SHAPE
@@ -145,11 +157,13 @@ def backward_ab(lib):
         dout = torch.randn((B, L, h * d), generator=gen, device="cuda").to(dtype)
         out, lse = flash_attn._forward(qkv, h, with_lse=True)
         D = torch.empty((B, h, L), device="cuda")
+        ws = flash_attn.backward_scratch(qkv, h)
 
         def run(which):
             dqkv = torch.empty_like(qkv)
+            scratch = ws if which is mine or with_ws else False
             for kernel in ("dq", "dkv"):
-                cs._bwd_native(kernel, qkv, out, lse, dout, D, dqkv, lib=which)
+                cs._bwd_native(kernel, qkv, out, lse, dout, D, dqkv, lib=which, ws=scratch)
             return dqkv
 
         q, k, v = (t.detach().requires_grad_(True) for t in
@@ -159,9 +173,23 @@ def backward_ab(lib):
         fns = {"current": lambda: run(mine), "other": lambda: run(lib),
                "sdpa": lambda: torch.autograd.grad(sd_out, (q, k, v), sd_dout,
                                                    retain_graph=True)}
-        diff = (run(mine).float() - run(lib).float()).abs().max().item()
-        res[key] = {"max_abs_diff": diff, **alternate(fns, 5, warmup=1)}
-        del qkv, dout, out, lse, D, q, k, v, sd_out
+        d_mine, d_other = run(mine), run(lib)
+        res[key] = {"max_abs_diff": (d_mine.float() - d_other.float()).abs().max().item()}
+        if key == "f32":
+            want = cs._bwd_float64(qkv, dout)
+            scale = want.abs().max().item()
+            res[key]["vs_float64"] = {
+                name: {"dqkv_max_rel": (d.double() - want).abs().max().item() / scale,
+                       **{f"{part}_max_rel": (d.double() - want).reshape(B, L, 3, -1)[:, :, i]
+                          .abs().max().item() / scale for i, part in enumerate("qkv")}}
+                for name, d in (("current", d_mine), ("other", d_other))}
+            del want
+        del d_mine, d_other
+        torch.cuda.empty_cache()
+        res[key].update(alternate(fns, 5, warmup=1))
+        if key == "f32":
+            res[key]["current_launch_ms"] = launch_times(fns["current"], 5)
+        del qkv, dout, out, lse, D, ws, q, k, v, sd_out
         torch.cuda.empty_cache()
     return res
 

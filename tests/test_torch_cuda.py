@@ -13,7 +13,10 @@ log-sum-exp, two calls bitwise equal; the bf16 forward with the log-sum-exp as t
 serving call, its log-sum-exp 1e-3 of max |plain|; the backward kernels
 1e-4 of max |plain| in float32 and 1e-2 in bf16 (the plain backward in
 float32 on the same values, from the plain output and log-sum-exp; the
-kernels round dqkv to bf16), and two backward calls bitwise equal;
+kernels round dqkv to bf16), and two backward calls bitwise equal; the
+float32 backward (three TF32 passes) also within 1e-5 of max |float64|
+against the formula in float64 on the same values (the margin of the
+float32 forward; CPU emulation: tests/test_torch_flash_attn_bwd_tf32.py);
 global BA on
 the card against the CPU port on the same float32 inputs 1e-4 on poses and
 1e-3 on inverse depths (cuBLAS and the CPU sum in other orders), and two
@@ -200,6 +203,21 @@ def test_flash_attention_backward_matches_plain(card, monkeypatch, dtype, B, L):
     assert got.dtype == dtype and got.shape == qkv.shape
     assert torch.equal(got, again)
     assert _rel(got, want) <= (1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("B,L", [(3, 1611), (1, 65)])
+def test_flash_attention_f32_backward_matches_float64(card, B, L):
+    g = torch.Generator(device=card).manual_seed(7)
+    qkv = torch.randn((B, L, 3 * 384), generator=g, device=card)
+    dout = torch.randn((B, L, 384), generator=g, device=card)
+    out, lse = flash_attn._forward(qkv, 6, with_lse=True)
+    got = flash_attn.flash_attention_qkv_backward(qkv, out, lse, dout, 6)
+    x = qkv.double()
+    want = flash_attn.attention_qkv_backward_plain(
+        x, flash_attn.attention_qkv_plain(x, 6), flash_attn.attention_lse_plain(x, 6),
+        dout.double(), 6)
+    assert want.dtype == torch.float64
+    assert ((got.double() - want).abs().max() / want.abs().max()).item() <= 1e-5
 
 
 def test_flash_attention_autograd_matches_plain_autograd(card, monkeypatch):
