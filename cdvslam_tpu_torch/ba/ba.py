@@ -14,7 +14,9 @@ Shapes:
   target     (E, 2), weight (E, 2)
   ii, jj     (E,) frame indices; kk (E,) patch index within the window
   mask       (E,) valid-edge mask, or None
-  t0         first optimized pose (host int); poses < t0 are fixed
+  t0         first optimized pose (an int, or a 0-d integer tensor on the
+             device, so that the solve reads nothing back to the host);
+             poses < t0 are fixed
   N          size of the optimized pose window (ix = ii - t0)
 
 The training rollout's numerics (``TRAINING_PARAMS``: more damping, a
@@ -145,7 +147,9 @@ def ba_solve(poses, patches, intrinsics, target, weight, ii, jj, kk, mask, t0,
     plan_k = SegmentPlan(torch.where(mask, kid, torch.full_like(kid, K)), K)
     plan_v = SegmentPlan(torch.cat([vid(ix, vi), vid(jx, vj)]), N)
     touched = plan_k.sum(mask.to(torch.float32)) > 0
-    win = torch.arange(t0, t0 + max(min(N, NP - t0), 0), device=dev)
+    # window rows t0 .. t0 + N - 1; rows past the buffer write to a dump row
+    win = torch.arange(N, device=dev) + t0
+    win_rows = torch.where(win < NP, win, torch.full_like(win, NP))
 
     for _ in range(iterations):
         r, Ji, Jj, Jz, (x1, y1, Z) = _edge_terms(
@@ -188,8 +192,9 @@ def ba_solve(poses, patches, intrinsics, target, weight, ii, jj, kk, mask, t0,
             dZ = Q * (u - Ef.T @ dX_flat)
             dX = dX_flat.reshape(N, 6)
 
-            poses = poses.clone()
-            poses[win] = se3_retr(poses[win], dX[: win.shape[0]].to(dtype))
+            ext = torch.cat([poses, poses[:1]])
+            ext = ext.index_copy(0, win_rows, se3_retr(ext[win_rows], dX.to(dtype)))
+            poses = ext[:NP]
 
         d_old = patches[:, 2, 0, 0]
         d_new = d_old + dZ.to(dtype)

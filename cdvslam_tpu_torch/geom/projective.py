@@ -46,9 +46,9 @@ def _rel_pose(poses: SE3, ii, jj, tonly=False) -> SE3:
     gj = _take(poses.data, jj, 1)
     gij = se3_mul(gj, se3_inv(gi))
     if tonly:
-        rot = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=gij.dtype,
-                           device=gij.device).expand(gij.shape[:-1] + (4,))
-        gij = torch.cat([gij[..., :3], rot], dim=-1)
+        # the identity rotation, made on the device (no host constant)
+        gij = torch.cat([gij[..., :3], torch.zeros_like(gij[..., :3]),
+                         torch.ones_like(gij[..., :1])], dim=-1)
     return SE3(gij)
 
 

@@ -113,6 +113,7 @@ class DinoVisionTransformer(nn.Module):
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.pos_grid = pos_grid
+        self._interp = {}   # (h0, w0, device, dtype) -> the two bicubic matrices
         self.patch_embed = PatchEmbed(patch_size, embed_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, pos_grid * pos_grid + 1, embed_dim))
@@ -126,9 +127,14 @@ class DinoVisionTransformer(nn.Module):
             return self.pos_embed.to(dtype)
         pe = wide(self.pos_embed)
         patch_pe = pe[:, 1:].reshape(1, N, N, self.embed_dim)
-        dev = pe.device
-        Wh = torch.from_numpy(_torch_bicubic_matrix(N, h0, (h0 + 0.1) / N)).to(dev, pe.dtype)
-        Ww = torch.from_numpy(_torch_bicubic_matrix(N, w0, (w0 + 0.1) / N)).to(dev, pe.dtype)
+        # the resampling matrices, uploaded once per size, device and type:
+        # a frame's forward then copies nothing from the host
+        key = (h0, w0, pe.device, pe.dtype)
+        if key not in self._interp:
+            self._interp[key] = tuple(
+                torch.from_numpy(_torch_bicubic_matrix(N, n, (n + 0.1) / N)).to(pe.device, pe.dtype)
+                for n in (h0, w0))
+        Wh, Ww = self._interp[key]
         patch_pe = torch.einsum("hH,bHWd,wW->bhwd", Wh, patch_pe, Ww)
         patch_pe = patch_pe.reshape(1, h0 * w0, self.embed_dim)
         return torch.cat([pe[:, :1], patch_pe], dim=1).to(dtype)

@@ -29,7 +29,7 @@ class SegHeadFlatten(nn.Module):
     def filt_mask(self, x, filt_index):
         """True where the token's argmax class is in ``filt_index`` (a 1-D
         tensor of dynamic class ids on x's device)."""
-        return torch.isin(self(x).argmax(-1), filt_index)
+        return (self(x).argmax(-1)[:, None] == filt_index).any(-1)
 
 
 class DepthHeadFlatten(nn.Module):

@@ -7,6 +7,7 @@ RANDOM and GRADIENT_BIAS take their random candidates as input (drawn by
 draws."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -128,7 +129,7 @@ def select_score(uniforms, score_map, M, scale_f2i, upperleft=True):
     y = hw_inds // wi
     x = hw_inds - y * wi
     off = 0.0 if upperleft else 0.5
-    inv = (1.0 / torch.tensor(scale_f2i, dtype=torch.float32)).item()   # 3.4999998
+    inv = float(np.float32(1.0) / np.float32(scale_f2i))   # 3.4999998
     coords = torch.stack([(x + off) * inv, (y + off) * inv], -1)
     return coords.to(torch.float32), scores
 
@@ -138,8 +139,9 @@ def seg_binary_score(filt_mask, n, hi, wi):
     tokens, 0 on dynamic tokens and on the border rows and columns.
     filt_mask (n*hi*wi,) bool, True = dynamic -> (n, hi, wi) float32."""
     s = (~filt_mask).to(torch.float32).reshape(n, hi, wi)
-    s[:, [0, -1], :] = 0.0
-    s[:, :, [0, -1]] = 0.0
+    for border in (0, -1):
+        s[:, border, :].fill_(0.0)
+        s[:, :, border].fill_(0.0)
     return s
 
 

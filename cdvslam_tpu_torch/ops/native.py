@@ -44,6 +44,8 @@ SIGNATURES = {
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# every LaunchCounter, for code that replays recorded launches (a CUDA graph)
+COUNTERS: list = []
 
 
 class LaunchCounter:
@@ -52,6 +54,7 @@ class LaunchCounter:
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        COUNTERS.append(self)
 
     def reset(self):
         self.count = 0

@@ -5,6 +5,11 @@ run on the card. The bundle adjustment's 12-iteration solves are sensitive
 to that reassociation, so every segment sum here is a stable sort of the
 segment ids followed by ``torch.segment_reduce`` over the sorted runs: the
 same inputs always sum in the same order.
+
+Nothing here reads the device from the host: the run lengths are counted
+by an integer ``scatter_add_`` (exact in any order) and ``segment_reduce``
+skips its host-side checks of them, so a ``SegmentPlan`` can be built and
+summed inside a CUDA graph capture.
 """
 from __future__ import annotations
 
@@ -25,13 +30,15 @@ class SegmentPlan:
         keep = (ids >= 0) & (ids < num_segments)
         ids = torch.where(keep, ids, torch.full_like(ids, num_segments))
         self.order = torch.argsort(ids, stable=True)
-        self.lengths = torch.bincount(ids, minlength=num_segments + 1)
+        self.lengths = torch.zeros(num_segments + 1, dtype=torch.long,
+                                   device=ids.device).scatter_add_(0, ids, torch.ones_like(ids))
         self.num_segments = num_segments
 
     def sum(self, vals: torch.Tensor) -> torch.Tensor:
         """(n, ...) rows -> (num_segments, ...) per-segment sums."""
+        # unsafe: the lengths are non-negative and sum to n by construction
         out = torch.segment_reduce(vals[self.order], "sum",
-                                   lengths=self.lengths, axis=0)
+                                   lengths=self.lengths, axis=0, unsafe=True)
         return out[: self.num_segments]
 
 

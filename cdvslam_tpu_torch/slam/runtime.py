@@ -67,8 +67,10 @@ from ..models.patchifier import (
 )
 from ..ops.patchify import patchify
 from ..utils.timer import Timer
+from .fused import FrameInputs, FusedKey, FusedStep
 from .kernels import (
-    EdgeIndex, dynamic_class_weight, motion_extrapolate, scale_adjustment, update_body,
+    BLOCK_ROWS, SCALARS, dynamic_class_weight, edge_index, median, motion_extrapolate,
+    scale_adjustment, shift_rows, update_body,
 )
 from .state import PatchGraph
 
@@ -102,6 +104,11 @@ def resolve_device(device):
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def _put(buf, rows, src):
+    """buf[rows] = src in place, in buf's type (rows a 1-D index tensor)."""
+    buf.index_copy_(0, rows, src.to(buf.dtype))
 
 
 def _alloc_slot(table, n, cap):
@@ -195,6 +202,11 @@ class SLAM:
         self.stats = {"updates": 0, "keyframe_removals": 0, "loop_edges": 0,
                       "global_ba": 0, "lc_attempts": 0, "lc_applied": 0}
         self._kf_queue = []   # lagged keyframe decisions (frame id, mm)
+        # a keyframe removal whose device rows have not moved yet:
+        # (row k, frame count before it, its id, the id of row k - 1)
+        self._pending_shift = None
+        self._prep_cache = {}         # _prepare_update's shift-invariant rows
+        self.fused = FusedStep(self)
         self.last_global_ba = -1000   # n when loop edges were last added
         self.ran_global_ba = set()    # keyframe counts n that ran a global BA
         self._prefetched = {}         # id(image) -> (image, device frame, upload event)
@@ -277,14 +289,14 @@ class SLAM:
         self.fslot_rows[n], self.pslot_rows[n] = fs, ps
         return fs, ps
 
-    def _patches_cdv(self, img, cand, n, counter):
+    def _patches_cdv(self, st, img, cand, n, noise):
         """CDVNet's features and patches of one frame (img (H, W, 3) float on
-        the device, cand the sampler's centres): the fmap (1, 24, h, w), the
-        context rows (1, M, 384), gmap (1, M, 24, P, P), the patch row
-        (M, 3, P, P) and the patch colours (1, M, 3) bilinear from the
-        network's input image at full resolution; writes the seg and score
-        rows of frame row n."""
-        cfg, pg, M, P = self.cfg, self.pg, self.M, self.P
+        the device, cand the sampler's centres, noise SCORE's uniforms):
+        the fmap (1, 24, h, w), the context rows (1, M, 384), gmap (1, M, 24,
+        P, P), the patch row (M, 3, P, P) and the patch colours (1, M, 3)
+        bilinear from the network's input image at full resolution; writes
+        the seg and score rows of frame row n (a 0-d tensor) into ``st``."""
+        cfg, M, P = self.cfg, self.M, self.P
         dev, gd = self.device, self.gdtype
         image_f32 = (img / 255.0)[None]
         image_c = image_f32.to(self.fdtype)
@@ -298,17 +310,16 @@ class SLAM:
         if cfg.CENTROID_SEL_STRAT == "SCORE":
             # seg-filtered selection: static interior tokens score 1
             dyn = self.seg_head.filt_mask(tokens[0].to(gd), self.filt_index)
-            u = torch.as_tensor(np.array(self.score_noise(counter), np.float32), device=dev)
-            coords, score_row = select_score(u.reshape(1, hi * wi),
+            coords, score_row = select_score(noise.reshape(1, hi * wi),
                                              seg_binary_score(dyn, 1, hi, wi), M, 4.0 / 14.0,
                                              upperleft)
-            pg.score_[n * M:(n + 1) * M] = score_row
+            _put(st["score_"], n * M + torch.arange(M, device=dev), score_row)
         coords = coords.reshape(1, M, 2)
         ictx = patchify(tmap, (4.0 / 14.0) * coords, 0,
                         mode="upperleft" if upperleft else "bilinear")[..., 0, 0]
         ictx = self.model.adapt(ictx)
         if self.seg_head is not None:
-            pg.seg_[n] = self.seg_head.seg_class((ictx[0] * 4.0).to(gd))
+            _put(st["seg_"], n.reshape(1), self.seg_head.seg_class((ictx[0] * 4.0).to(gd))[None])
         gmap = patchify(fmap, coords, P // 2, mode="bilinear")
         clr = patchify(image_f32.permute(0, 3, 1, 2), 4 * (coords + 0.5), 0,
                        mode="bilinear")[..., 0, 0]
@@ -391,42 +402,82 @@ class SLAM:
             log.append((ready is not None, start, end, time.perf_counter() - t0))
         return frame
 
-    def _insert_frame(self, image, n, fac, initialized, intrinsics, counter):
-        """Features, patch selection and gathers, the heads, motion model,
-        depth init, and the writes of frame row n; ``counter`` is the
-        frame's id."""
-        cfg, pg, M, P = self.cfg, self.pg, self.M, self.P
-        dev = self.device
-        img = self._frame_on_device(image).float()
+    def _n_candidates(self):
+        """Centres the patch sampler draws: 3M under DPVO's GRADIENT_BIAS,
+        else M."""
+        gb = self.network == "dpv" and self.cfg.CENTROID_SEL_STRAT == "GRADIENT_BIAS"
+        return 3 * self.M if gb else self.M
+
+    def _host_floats(self, intrinsics, fac, counter):
+        """The frame's float inputs, drawn on the host, as one float64
+        array: intrinsics / RES (4), MOTION_DAMPING * fac, the sampler's
+        centres and pre-init depths, and SCORE's uniforms (in that order,
+        the order the generator draws them)."""
         cand, drand = self.patch_sampler(counter)
-        cand = torch.as_tensor(np.array(cand, np.float32), device=dev).reshape(-1, 2)
-        drand = torch.as_tensor(np.array(drand, np.float32), device=dev).reshape(M)
+        parts = [np.asarray(intrinsics, np.float64) / self.RES,
+                 [self.cfg.MOTION_DAMPING * fac],
+                 np.asarray(cand, np.float32).reshape(-1),
+                 np.asarray(drand, np.float32).reshape(-1)]
+        if self.network == "cdv" and self.cfg.CENTROID_SEL_STRAT == "SCORE":
+            parts.append(np.asarray(self.score_noise(counter), np.float32).reshape(-1))
+        return np.concatenate([np.asarray(a, np.float64).reshape(-1) for a in parts])
+
+    @staticmethod
+    def _host_ints(rows, **scalars):
+        """One flat int32 array: the index rows, then ``SCALARS`` (0 where
+        not given)."""
+        tail = np.array([scalars.get(name, 0) for name in SCALARS], np.int32)
+        return np.concatenate([rows.reshape(-1).astype(np.int32), tail])
+
+    def _upload(self, a):
+        """A host array on the device (through pinned memory, not waiting,
+        on the card)."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _insert_frame(self, st, inp: FrameInputs, initialized):
+        """Features, patch selection and gathers, the heads, motion model,
+        depth init, and the writes of frame row n into the state dict
+        ``st``. Every row and slot comes from ``inp`` as a device scalar, so
+        the steady-state step runs this inside its CUDA graph."""
+        cfg, M, P = self.cfg, self.M, self.P
+        dev, gd = self.device, self.gdtype
+        ints = inp.ints[-len(SCALARS):].long()
+        n, fs, ps = (ints[SCALARS.index(name)] for name in ("n", "fs", "ps"))
+        n1 = n.reshape(1)
+        K = self._n_candidates()
+        fl = inp.floats
+        intr, dfac = fl[:4].to(gd), fl[4].to(gd)
+        cand = fl[5:5 + 2 * K].to(torch.float32).view(K, 2)
+        drand = fl[5 + 2 * K:5 + 2 * K + M].to(torch.float32)
+        noise = fl[5 + 2 * K + M:].to(torch.float32)
+        img = inp.image.float()
         if self.network == "dpv":
             fmap, ictx, gmap, patch_row, clr = self._patches_dpv(img, cand)
         else:
-            fmap, ictx, gmap, patch_row, clr = self._patches_cdv(img, cand, n, counter)
-        pg.colors_dev[n] = clr[0]
-
-        pg.intrinsics_[n] = torch.as_tensor(
-            np.asarray(intrinsics, np.float64) / self.RES, dtype=self.gdtype)
-        pg.poses_[n] = motion_extrapolate(pg.poses_, n, fac, cfg.MOTION_DAMPING)
+            fmap, ictx, gmap, patch_row, clr = self._patches_cdv(st, img, cand, n, noise)
+        _put(st["colors_dev"], n1, clr)
+        _put(st["intrinsics_"], n1, intr[None])
+        _put(st["poses_"], n1, motion_extrapolate(st["poses_"], n, dfac)[None])
         if self.depth_head is not None:
-            pg.scale_[n] = patch_row[:, 2, P // 2, P // 2].mean()
+            _put(st["scale_"], n1, patch_row[:, 2, P // 2, P // 2].mean()[None])
         elif initialized:
             # median inverse depth of the last three frames
-            idx3 = [min(max(n - 3, 0) + i, max(n - 1, 0)) for i in range(3)]
-            pflat = pg.patches_.reshape(self.N, M, 3, P, P)
-            d0 = torch.quantile(pflat[idx3][:, :, 2].reshape(-1), 0.5)
-            patch_row[:, 2] = d0
+            three = torch.minimum((n - 3).clamp(min=0) + torch.arange(3, device=dev),
+                                  (n - 1).clamp(min=0))
+            rows = (three[:, None] * M + torch.arange(M, device=dev)).reshape(-1)
+            patch_row[:, 2] = median(st["patches_"].index_select(0, rows)[:, 2].reshape(-1))
         else:
             patch_row[:, 2] = drand[:, None, None]
-        pg.patches_[n * M:(n + 1) * M] = patch_row
-
-        fs, ps = self._alloc_frame_slots(n)
-        pg.imap_[ps * M:(ps + 1) * M] = ictx[0]
-        pg.gmap_[ps * M:(ps + 1) * M] = gmap[0]
-        pg.fmap1_[fs] = fmap[0].permute(1, 2, 0)
-        pg.fmap2_[fs] = pyramidify(fmap, (4,))[0][0].permute(1, 2, 0)
+        arange_m = torch.arange(M, device=dev)
+        _put(st["patches_"], n * M + arange_m, patch_row)
+        _put(st["imap_"], ps * M + arange_m, ictx[0])
+        _put(st["gmap_"], ps * M + arange_m, gmap[0])
+        fs1 = fs.reshape(1)
+        _put(st["fmap1_"], fs1, fmap.permute(0, 2, 3, 1))
+        _put(st["fmap2_"], fs1, pyramidify(fmap, (4,))[0].permute(0, 2, 3, 1))
 
     # ------------------------------------------------------------------
     def _edges_forw(self):
@@ -445,10 +496,12 @@ class SLAM:
             self.pg.append_edges(kk // self.M, jj, kk)
 
     def _add_loop_edges(self):
-        """Loop-closure candidates every GLOBAL_OPT_FREQ keyframes."""
+        """Loop-closure candidates every GLOBAL_OPT_FREQ keyframes (after a
+        deferred keyframe shift has landed: edges_loop reads frame rows)."""
         cfg, pg = self.cfg, self.pg
         if not cfg.LOOP_CLOSURE or pg.n - self.last_global_ba < cfg.GLOBAL_OPT_FREQ:
             return
+        self._apply_pending_shift()
         kk, jj = edges_loop(pg, cfg)
         if len(kk):
             self.last_global_ba = pg.n
@@ -475,69 +528,164 @@ class SLAM:
         KWIN = self._kwin_for_span((int(kk.max()) - k0) // M + 1)
         return min(k0, self.N * M - KWIN), KWIN
 
-    def _run_update(self, ii, jj, kk, net, t0, iterations, mm_pair=None):
-        """update_body over edges (ii, jj, kk) and hidden state ``net``; the
-        weights take the dynamic-class factors (under FILTER_DYNAMIC_CLASS
-        with a seg head) and the patch scores (under SCORE)."""
-        pg, M, dev = self.pg, self.M, self.device
+    def _prepare_update(self, ii, jj, kk, E_pad, net_src):
+        """Host index prep of one update over E_pad padded edges: (k0, KWIN,
+        rows), rows the (len(BLOCK_ROWS), E_pad) int32 block. Padded edges
+        read row 0 everywhere, are masked (``mask``), drop out of the
+        patch and group segments, and start from a zero hidden state.
+
+        The sort- and unique-heavy rows (neighbours, segments, the CDV
+        group permutation, the mask) are cached under a key that does not
+        change when the whole edge pattern moves by whole frames, as the
+        JAX package's ``_prepare_update`` does; the frame, window and slot
+        rows are rebuilt every call."""
+        M = self.M
         k0, KWIN = self.patch_window(kk)
-        # DPVO's (i, j) groups need no equal sizes: no group permutation
-        aux = build_update_aux(ii, jj, kk, k0, KWIN,
-                               M=M if self.network == "cdv" else None)._replace(mask=None)
-        ctx_rows = self.pslot_rows[kk // M] * M + kk % M
-        jjm = self.fslot_rows[jj]
+        E = len(ii)
+        rel = np.stack([ii - ii[0], jj - jj[0], kk - kk[0]])
+        key = (E_pad, KWIN, int(kk.min()) - k0, rel.tobytes())
+        aux_rows = self._prep_cache.get(key)
+        if aux_rows is None:
+            cdv = self.network == "cdv"
+            aux = build_update_aux(ii, jj, kk, k0, KWIN, M=M if cdv else None, n_gseg=E_pad,
+                                   E_pad=E_pad)
+            # the group permutation fills (E_pad // M) * M entries
+            perm = np.zeros(E_pad, np.int32)
+            if cdv:
+                perm[: aux.perm.size] = aux.perm.reshape(-1)
+            aux_rows = np.stack([aux.ix, aux.jx, aux.kseg, aux.gseg, perm,
+                                 aux.inv_perm if cdv else np.zeros(E_pad, np.int32),
+                                 aux.mask]).astype(np.int32)
+            if len(self._prep_cache) >= 64:       # at most 64 edge patterns
+                self._prep_cache.pop(next(iter(self._prep_cache)))
+            self._prep_cache[key] = aux_rows
 
-        def dt(a, dtype=torch.long):
-            return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+        def padded(a, fill=0):
+            return np.concatenate([a, np.full(E_pad - E, fill, np.int64)])
 
-        idx = EdgeIndex(ii=dt(ii), jj=dt(jj), kk_local=dt(kk - k0),
-                        ctx_idx=dt(ctx_rows), gmap_idx=dt(ctx_rows, torch.int32),
-                        jjm=dt(jjm, torch.int32), aux=aux.to_torch(dev))
-        mm_sel = None
-        if mm_pair is not None:
-            mi, mj = mm_pair
-            mm_sel = dt(np.stack([(ii == mi) & (jj == mj), (ii == mj) & (jj == mi)]),
-                        torch.bool)
+        rows = np.empty((len(BLOCK_ROWS), E_pad), np.int32)
+        rows[0], rows[1], rows[2] = padded(ii), padded(jj), padded(kk - k0)
+        rows[3] = padded(self.pslot_rows[kk // M] * M + kk % M)
+        rows[4] = padded(self.fslot_rows[jj])
+        rows[5:12] = aux_rows
+        rows[12] = padded(net_src, -1)
+        return k0, KWIN, rows
+
+    def _update_step(self, st, inp: FrameInputs, key: FusedKey):
+        """One update over the edges of ``inp`` (update_body), written back
+        into ``st``: the poses, the patch window, each edge's hidden state
+        and its target and weight. The weights take the dynamic-class
+        factors (under FILTER_DYNAMIC_CLASS with a seg head) and the patch
+        scores (under SCORE). Returns mm."""
+        E_pad, KWIN, dev = key.E_pad, key.KWIN, self.device
+        idx, s = edge_index(inp.ints, E_pad, self.M if self.network == "cdv" else None)
+        win = s["k0"] + torch.arange(KWIN, device=dev)
+        src = idx.net_src
+        net = st["net"].index_select(0, src.clamp(min=0))
+        net = torch.where((src >= 0)[:, None], net, torch.zeros_like(net))
         weight_mul = score_win = None
         if self.cfg.FILTER_DYNAMIC_CLASS and self.seg_head is not None:
-            weight_mul = dynamic_class_weight(pg.seg_, self.filt_index, dt(kk))
+            weight_mul = dynamic_class_weight(st["seg_"], self.filt_index,
+                                              idx.kk_local + s["k0"])
         if self.network == "cdv" and self.cfg.CENTROID_SEL_STRAT == "SCORE":
-            score_win = pg.score_[k0:k0 + KWIN]
-        poses, patches_win, net, target, weight, delta_norm, mm = update_body(
-            self.model, pg.poses_, pg.patches_[k0:k0 + KWIN], pg.intrinsics_,
-            pg.imap_, pg.gmap_, pg.fmap1_, pg.fmap2_, net, idx, t0,
-            float(self.ht4), float(self.wd4), mm_sel, weight_mul, score_win,
-            NW=self.NW, KWIN=KWIN, iterations=iterations)
-        return poses, patches_win, k0, net, (target, weight), delta_norm, mm
+            score_win = st["score_"].index_select(0, win)
+        poses, patches_win, net, target, weight, _, mm = update_body(
+            self.model, st["poses_"], st["patches_"].index_select(0, win), st["intrinsics_"],
+            st["imap_"], st["gmap_"], st["fmap1_"], st["fmap2_"], net, idx, s["t0"],
+            float(self.ht4), float(self.wd4), (s["mi"], s["mj"]), weight_mul, score_win,
+            NW=self.NW, KWIN=KWIN, iterations=key.iterations)
+        st["poses_"].copy_(poses)
+        _put(st["patches_"], win, patches_win)
+        st["net"][:E_pad] = net
+        st["tw_buf"][:E_pad] = torch.cat([target, weight], 1)
+        return mm
+
+    def _key(self, E_pad, KWIN, iterations, shift_span=0):
+        return FusedKey(E_pad, KWIN, iterations, shift_span, self.network, self.fdtype)
+
+    def _long_range(self):
+        """Loop edges in the active set and no global BA yet at this
+        keyframe count: the update runs no local BA, the global BA follows."""
+        pg = self.pg
+        return (bool((pg.ii < pg.n - self.cfg.REMOVAL_WINDOW - 1).any())
+                and pg.n not in self.ran_global_ba)
+
+    def _after_update(self, t0, long_range):
+        """The edges now hold the update's state; then the global BA (long
+        range) or, with a depth head, the scale adjustment, eagerly."""
+        pg = self.pg
+        pg.net_src = np.arange(pg.E)
+        pg.weights_current = True
+        if long_range:
+            self._run_global_ba()
+        elif self.depth_head is not None:
+            scale_adjustment(pg.poses_, pg.patches_, pg.scale_, t0, pg.n, 0.2, self.M)
 
     def update(self):
-        """One update of the active edges; returns the keyframe motion
-        magnitudes (2,) measured on the poses after the local BA. With
-        long-range (loop) edges and no global BA yet at this keyframe count,
-        the update runs no local BA and the global BA follows it; otherwise,
-        with a depth head, the scale adjustment follows it."""
+        """One eager update of the active edges (the initialization's and
+        termination's; steady-state frames run ``_fused_frame_update``);
+        returns the keyframe motion magnitudes (2,) measured on the poses
+        after the local BA. With long-range (loop) edges and no global BA
+        yet at this keyframe count, the update runs no local BA and the
+        global BA follows it; otherwise, with a depth head, the scale
+        adjustment follows it."""
         cfg, pg = self.cfg, self.pg
         if pg.E == 0:
             return None
         self.stats["updates"] += 1
         t0 = max(pg.n - cfg.OPTIMIZATION_WINDOW, 1)
-        long_range = (bool((pg.ii < pg.n - cfg.REMOVAL_WINDOW - 1).any())
-                      and pg.n not in self.ran_global_ba)
-        mm_pair = (pg.n - cfg.KEYFRAME_INDEX - 1, pg.n - cfg.KEYFRAME_INDEX + 1)
-        poses, patches_win, k0, net, (target, weight), _, mm = self._run_update(
-            pg.ii, pg.jj, pg.kk, pg.net, t0, 0 if long_range else 2, mm_pair)
-        pg.poses_ = poses
-        pg.patches_[k0:k0 + patches_win.shape[0]] = patches_win    # in place
-        pg.net = net
-        pg.weight = weight
-        if pg.keep_targets:
-            pg.tw = torch.cat([target, weight], 1)
-        if long_range:
-            self._run_global_ba()
-        elif self.depth_head is not None:
-            pg.poses_, pg.patches_, _ = scale_adjustment(
-                pg.poses_, pg.patches_, pg.scale_, t0, pg.n, 0.2, self.M)
+        long_range = self._long_range()
+        E_pad = pg.bucket(pg.E)
+        k0, KWIN, rows = self._prepare_update(pg.ii, pg.jj, pg.kk, E_pad, pg.net_src)
+        ints = self._host_ints(rows, t0=t0, k0=k0, mi=pg.n - cfg.KEYFRAME_INDEX - 1,
+                               mj=pg.n - cfg.KEYFRAME_INDEX + 1)
+        mm = self._update_step(pg.state(), FrameInputs(None, self._upload(ints), None),
+                               self._key(E_pad, KWIN, 0 if long_range else 2))
+        self._after_update(t0, long_range)
         return mm
+
+    def _fused_frame_update(self, image, n_row, fac, intrinsics, counter):
+        """The steady-state step of frame row n_row (edges already
+        appended): the deferred keyframe shift, the frame insert and the
+        update as ``fused.fused_body``, in one CUDA graph replay on the card
+        (``fused.FusedStep``); then, eagerly, the global BA or the scale
+        adjustment. Returns mm."""
+        cfg, pg = self.cfg, self.pg
+        self.stats["updates"] += 1
+        t0 = max(pg.n - cfg.OPTIMIZATION_WINDOW, 1)
+        long_range = self._long_range()
+        span, shift_k, pend = 0, 0, self._pending_shift
+        if pend is not None:
+            k, n_before, t1, t0d = pend
+            if 1 <= n_before - 1 - k <= cfg.KEYFRAME_INDEX + 2:
+                span, shift_k, self._pending_shift = n_before - 1 - k, k, None
+            else:
+                self._apply_pending_shift()     # out of band: eagerly, as JAX does
+        fs, ps = self._alloc_frame_slots(n_row)
+        E_pad = pg.bucket(pg.E)
+        k0, KWIN, rows = self._prepare_update(pg.ii, pg.jj, pg.kk, E_pad, pg.net_src)
+        ints = self._host_ints(rows, n=n_row, fs=fs, ps=ps, t0=t0, k0=k0,
+                               mi=pg.n - cfg.KEYFRAME_INDEX - 1,
+                               mj=pg.n - cfg.KEYFRAME_INDEX + 1, shift_k=shift_k)
+        floats = self._host_floats(intrinsics, fac, counter)
+        key = self._key(E_pad, KWIN, 0 if long_range else 2, span)
+        mm, dP = self.fused.run(key, self._frame_on_device(image), ints, floats)
+        if span:
+            pg.delta[t1] = (t0d, dP.clone())
+        self._after_update(t0, long_range)
+        return self._keep_mm(mm)
+
+    def _keep_mm(self, mm):
+        """mm kept for the lagged keyframe decision: on the card a pinned
+        host copy made without waiting and the event that marks it done
+        (the graph's output is overwritten by the next replay)."""
+        if self.device.type != "cuda":
+            return mm
+        host = torch.empty(mm.shape, dtype=mm.dtype, pin_memory=True)
+        host.copy_(mm, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
 
     # ------------------------------------------------------------------
     def normalize(self):
@@ -576,18 +724,26 @@ class SLAM:
         poses, patches = global_ba_solve(
             pg.poses_, pg.patches_[:K], pg.intrinsics_[0], tw[:, :2], tw[:, 2:],
             idx.to(self.device), t0, N=N, M=M, iterations=2)
-        pg.poses_ = poses
+        pg.poses_.copy_(poses)
         pg.patches_[:K] = patches
         self.ran_global_ba.add(n)
 
     def motion_probe(self):
         """Median update delta of the newest frame's patches against the
-        frame being inserted, with fresh hidden state and no BA."""
+        frame being inserted, with fresh hidden state and no BA (its M edges
+        padded to a bucket, as the JAX package's probe)."""
         pg, M = self.pg, self.M
         kk = np.arange(pg.m - M, pg.m)
         jj = np.full(M, pg.n)
-        net = torch.zeros((M, self.DIM), dtype=self.fdtype, device=self.device)
-        *_, delta_norm, _ = self._run_update(kk // M, jj, kk, net, 1, 0)
+        E_pad = pg.bucket(M)
+        k0, KWIN, rows = self._prepare_update(kk // M, jj, kk, E_pad, np.full(M, -1))
+        idx, _ = edge_index(self._upload(self._host_ints(rows)), E_pad,
+                            M if self.network == "cdv" else None)
+        net = torch.zeros((E_pad, self.DIM), dtype=self.fdtype, device=self.device)
+        *_, delta_norm, _ = update_body(
+            self.model, pg.poses_, pg.patches_[k0:k0 + KWIN], pg.intrinsics_, pg.imap_,
+            pg.gmap_, pg.fmap1_, pg.fmap2_, net, idx, 1, float(self.ht4), float(self.wd4),
+            NW=self.NW, KWIN=KWIN, iterations=0)
         return float(torch.quantile(delta_norm[:M].float(), 0.5))
 
     # ------------------------------------------------------------------
@@ -595,6 +751,9 @@ class SLAM:
         """A queued keyframe decision: physical frame id -> current row, or
         None if the motion test passes or the row is gone."""
         pg = self.pg
+        if isinstance(mm, tuple):           # a pinned copy on its way
+            mm, done = mm
+            done.synchronize()
         if float(mm.sum()) / 2 >= self.cfg.KEYFRAME_THRESH:
             return None
         rows = np.nonzero(pg.tstamps_[: pg.n] == pid)[0]
@@ -602,12 +761,15 @@ class SLAM:
             return None
         return int(rows[0])
 
-    def _kf_apply(self, k):
+    def _kf_apply(self, k, defer_shift=False):
         """Remove keyframe row k (or nothing for None), then retire the
         edges that left the optimization window, in one compaction. Under
         loop closure the retired edges go to the inactive store, and loop
-        edges into the last OPTIMIZATION_WINDOW frames stay active."""
+        edges into the last OPTIMIZATION_WINDOW frames stay active. The
+        host rows move at once; with ``defer_shift`` the device rows move
+        in the next steady-state step (``_pending_shift``)."""
         cfg, pg, M = self.cfg, self.pg, self.M
+        self._apply_pending_shift()
         if k is not None:
             self.stats["keyframe_removals"] += 1
             drop = (pg.ii == k) | (pg.jj == k)
@@ -629,18 +791,22 @@ class SLAM:
             return
         n = pg.n
         t0, t1 = int(pg.tstamps_[k - 1]), int(pg.tstamps_[k])
-        pg.delta[t1] = (t0, se3_mul(pg.poses_[k], se3_inv(pg.poses_[k - 1])))
         for table in (pg.tstamps_, self.fslot_rows, self.pslot_rows):
             table[k:n - 1] = table[k + 1:n].copy()
-        pg.poses_[k:n - 1] = pg.poses_[k + 1:n].clone()
-        pg.intrinsics_[k:n - 1] = pg.intrinsics_[k + 1:n].clone()
-        pg.patches_[k * M:(n - 1) * M] = pg.patches_[(k + 1) * M:n * M].clone()
-        pg.seg_[k:n - 1] = pg.seg_[k + 1:n].clone()
-        pg.colors_dev[k:n - 1] = pg.colors_dev[k + 1:n].clone()
-        pg.scale_[k:n - 1] = pg.scale_[k + 1:n].clone()
-        pg.score_[k * M:(n - 1) * M] = pg.score_[(k + 1) * M:n * M].clone()
+        self._pending_shift = (k, n, t1, t0)
+        if not defer_shift:
+            self._apply_pending_shift()
         pg.n -= 1
         pg.m -= M
+
+    def _apply_pending_shift(self):
+        """Move the device rows of a deferred keyframe removal now
+        (``kernels.shift_rows``) and enter its delta."""
+        if self._pending_shift is None:
+            return
+        k, n, t1, t0 = self._pending_shift
+        self._pending_shift = None
+        self.pg.delta[t1] = (t0, shift_rows(self.pg.state(), k, n - 1 - k, self.M))
 
     # ------------------------------------------------------------------
     def _motion_fac(self, n):
@@ -657,34 +823,7 @@ class SLAM:
                 f"The buffer size is too small. You can increase it using "
                 f'"--opts BUFFER_SIZE={self.N * 2}"')
         if self.is_initialized:
-            # steady state: apply the keyframe decision measured two frames
-            # ago, insert the frame, run one update, queue this decision
-            with self._timer("keyframe"):
-                if len(self._kf_queue) >= 2:
-                    self._kf_apply(self._decide_row(*self._kf_queue.pop(0)))
-                else:
-                    self._kf_apply(None)
-            n = pg.n
-            if self.long_term_lc is not None:
-                self.long_term_lc(image, n)
-            self.tlist.append(tstamp)
-            pg.tstamps_[n] = pg.counter
-            fac = self._motion_fac(n)
-            pg.counter += 1
-            pg.n += 1
-            pg.m += self.M
-            self._add_loop_edges()
-            self._append_factors()
-            with self._timer("patch"):
-                self._insert_frame(image, n, fac, True, intrinsics, pg.counter - 1)
-            with self._timer("update"):
-                mm = self.update()
-            if pg.n - cfg.KEYFRAME_INDEX >= 1:
-                self._kf_queue.append(
-                    (int(pg.tstamps_[pg.n - cfg.KEYFRAME_INDEX]), mm))
-            self._attempt_loop_closure()
-            self._show(image)
-            return "Is keyframe"
+            return self._call_fused(tstamp, image, intrinsics)
 
         n = pg.n
         if self.long_term_lc is not None:
@@ -692,8 +831,12 @@ class SLAM:
         self.tlist.append(tstamp)
         pg.tstamps_[n] = pg.counter
         with self._timer("patch"):
-            self._insert_frame(image, n, self._motion_fac(n), False, intrinsics,
-                               pg.counter)
+            fs, ps = self._alloc_frame_slots(n)
+            ints = self._host_ints(np.zeros(0, np.int32), n=n, fs=fs, ps=ps)
+            inp = FrameInputs(self._frame_on_device(image), self._upload(ints),
+                              self._upload(self._host_floats(intrinsics, self._motion_fac(n),
+                                                             pg.counter)))
+            self._insert_frame(pg.state(), inp, False)
         pg.counter += 1
         if n > 0 and cfg.MOTION_PROBE_THR >= 0:
             if self.motion_probe() < cfg.MOTION_PROBE_THR:
@@ -709,6 +852,37 @@ class SLAM:
             for _ in range(12):
                 self.update()
             self._attempt_loop_closure()
+        self._show(image)
+        return "Is keyframe"
+
+    def _call_fused(self, tstamp, image, intrinsics):
+        """Steady state: apply the keyframe decision measured two frames
+        ago (its device shift deferred into this frame's step), append the
+        frame's edges on the host, then insert the frame and run one update
+        in one step (``_fused_frame_update``), and queue this frame's
+        decision."""
+        cfg, pg = self.cfg, self.pg
+        with self._timer("keyframe"):
+            if len(self._kf_queue) >= 2:
+                self._kf_apply(self._decide_row(*self._kf_queue.pop(0)), defer_shift=True)
+            else:
+                self._kf_apply(None)
+        n = pg.n
+        if self.long_term_lc is not None:
+            self.long_term_lc(image, n)
+        self.tlist.append(tstamp)
+        pg.tstamps_[n] = pg.counter
+        fac = self._motion_fac(n)
+        pg.counter += 1
+        pg.n += 1
+        pg.m += self.M
+        self._add_loop_edges()
+        self._append_factors()
+        with self._timer("update"):
+            mm = self._fused_frame_update(image, n, fac, intrinsics, pg.counter - 1)
+        if pg.n - cfg.KEYFRAME_INDEX >= 1:
+            self._kf_queue.append((int(pg.tstamps_[pg.n - cfg.KEYFRAME_INDEX]), mm))
+        self._attempt_loop_closure()
         self._show(image)
         return "Is keyframe"
 

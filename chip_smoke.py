@@ -4,6 +4,19 @@
     python3 chip_smoke.py                    # the smoke: every phase below
     python3 chip_smoke.py --profile DIR      # phase 0, then a profile only
 
+Every steady-state frame of a SLAM on the card is one CUDA graph replay
+(``cdvslam_tpu_torch/slam/fused.py``). A kernel wrapper counts its Python
+calls, so a replay adds the launches its key's capture recorded; the
+warm-up run before a capture adds none. Python wrappers that the phases
+put around functions inside the step run at the warm-up and the capture
+only: the phases read launches from the counters, and keep device
+tallies, which a replay updates, for what the heads and the selection
+did. The K1 inputs of a chosen update come from ``ReplayCheck``: while a
+path runs outside its timed window, the first replay of each captured key
+(and the chosen one) is held bitwise to ``fused.fused_body`` run eagerly
+on a copy of the state and of the key's static inputs, and that eager
+run's K1 inputs are kept.
+
 Phases, each printing one JSON line; any failure exits non-zero:
   0  the card (nvidia-smi), torch and CUDA versions; builds both kernels
      with nvcc for sm_90a and prints the build time, ptxas's register and
@@ -47,10 +60,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
      plain copy and the wait on a prefetched upload, CUDA events; host:
      the prefetch() call and the plain upload; the median wait below the
      median copy), terminate(); poses finite, corr launched once per update and flash
-     attention 12 times per frame; the corr inputs of the last warm-up
-     frame's update are captured
+     attention 12 times per frame, one graph replay per steady-state frame,
+     every key checked outside the timed window bitwise equal to the eager
+     body; the corr inputs of the last warm-up frame's update are captured
   4-f32  40 frames of the main path with MIXED_PRECISION=False: FPS, poses
-     finite, 12 float32 K2 launches per frame and no bf16 one
+     finite, 12 float32 K2 launches per frame and no bf16 one, one replay
+     per steady-state frame
   5  K1 on those captured inputs: parity (bf16 rule above) and times
   6  the proximity loop-closure path: get_cfg() merged with
      config/default_cdvslam.yaml, CLASSIC_LOOP_CLOSURE=False,
@@ -59,9 +74,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
      keyframes loop edges need), the same weights and frames as phase 4,
      LC_FRAMES frames and terminate(); loop edges and global BAs fire,
      poses finite, one update and one corr launch per frame, 12 flash
-     attention launches per frame; one global BA's inputs are captured and
-     solved twice (bitwise equal), and the corr inputs of one update that
-     holds loop edges are captured, checked (bf16 rule) and timed
+     attention launches per frame, one replay per steady-state frame and
+     every key's first replay bitwise equal to the eager body (frames with
+     a check are left out of the FPS); one global BA's inputs are captured
+     and solved twice (bitwise equal), and the corr inputs of one update
+     that holds loop edges are captured, checked (bf16 rule) and timed
   6-classic  the published config/default_cdvslam.yaml with its classical
      backend (ORB + BoW retrieval, triplet triangulation, Sim3 PGO in a
      worker thread) and the proximity backend on, phase 6's cut,
@@ -82,9 +99,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
      and flash attention 12 times per frame, the share of tokens of a
      dynamic class in (0, 1), a share of edges down-weighted to 1e-4 above
      0, no zero score among the selected patches, the scale adjustment's
-     openings counted, scale_adjustment on a crafted pose pair on the card
-     against the CPU; then 40 frames with DEPTH_HEAD="dpt_random": depths
-     and poses finite, ms per frame insert (synchronize on each side)
+     openings counted, one replay per steady-state frame and the warm-up
+     keys bitwise equal to the eager body, scale_adjustment on a crafted
+     pose pair on the card against the CPU; then 40 frames with
+     DEPTH_HEAD="dpt_random": depths and poses finite, ms per steady-state
+     frame (insert and update are one replay; synchronize on each side)
   8  the DPVO path ("8-corr" first: K1 at C = 128 on the phase-1 layouts,
      the same rules, times at E = 9600): get_cfg() merged with
      config/default_dpvo.yaml (RANDOM selection), SLAM(cfg, "dpv", 480,
@@ -94,9 +113,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
      attention never; then 40 frames with GRADIENT_BIAS (poses finite,
      every selected centre inside [1, dim - 1)) and a DPV-SLAM run
      (LOOP_CLOSURE=True with phase 6's cut KEYFRAME_THRESH=0, LC_FRAMES
-     frames: loop edges and global BAs fire, poses finite); K1 is checked
-     and timed on the last warm-up update's inputs ("8-update") and on the
-     first update with loop edges ("8-loop-update")
+     frames: loop edges and global BAs fire, poses finite), each with one
+     replay per steady-state frame and its keys held to the eager body; K1
+     is checked and timed on the last warm-up update's inputs ("8-update")
+     and on the first update with loop edges ("8-loop-update")
   9  training (``cdvslam_tpu_torch.train.cli``) on a synthetic TartanAir
      tree at 480 x 640 with seeded random weights: 3 sparse and 2 dense
      CDVNet steps in float32, two bf16 sparse steps and a DPVO step; ms
@@ -141,7 +161,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
      sigma 0 and 5, on the host: the table's rows, recall at sigma 0 and
      thresh 0.04 above 0
 
-Then a kernels line (a list of per-kernel records: launches on the main
+Then a graphs line: for the main, loop-closure, CDVO++ and DPVO paths, the
+captured keys (E_pad, KWIN, BA iterations, shift span, network, type),
+captures, replays, the bytes of the graphs' shared memory pool, and the
+replays held to the eager body. Then a kernels line (a list of
+per-kernel records: launches on the main
 path, max error, kernel / plain / library times and the roofline bound;
 K1's record adds the phase-5 times as ms_main_path and friends, the
 phase-6 times as ms_loop_update and friends, and phase 8's as ms_c128,
@@ -164,8 +188,10 @@ the nvidia-smi line, and the last line
 ``--profile DIR`` runs phase 0 and then, instead of the smoke, 20
 steady-state frames of the main path timed and 20 more under
 torch.profiler: device busy time and idle share (busy over the untraced
-wall time), launches per frame, the port's two kernels and the top
-kernels by device time; then the same for the loop-closure path of
+wall time), the kernels the device ran per frame (inside the graphs too),
+the host's launch calls per frame (a replay is one cudaGraphLaunch), graph
+replays per frame, the port's two kernels and the top kernels by device
+time; then the same for the loop-closure path of
 phase 6 after 100 warm-up frames, for the CDVO++ path of phase 7 after
 60 (with the heads' device time and launches per frame) and for the DPVO
 path of phase 8 after 60; then a float32 and a bf16 sparse training step
@@ -214,6 +240,88 @@ def cuda_time(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+class ReplayCheck:
+    """Holds the SLAM's steady-state CUDA graphs to their eager body while a
+    path runs (installed on ``FusedStep.replay`` for every SLAM): the first
+    replay of each captured key, and the replays ``pick(slam)`` selects, run
+    ``fused.fused_body`` eagerly on a copy of the state and of the key's
+    static inputs taken just before the replay; every state buffer and mm
+    and dP must come out bitwise equal. The eager runs are off the path:
+    their launches are not counted (``FusedStep.off_path``). At a picked
+    replay the K1 inputs of the eager run are kept in ``corr`` (the
+    inputs the replay's K1 read, the state being bitwise the same)."""
+
+    def __init__(self, pick=None, corr_once=True):
+        self.pick, self.corr_once = pick, corr_once
+        self.keys, self.corr = {}, []
+
+    def __enter__(self):
+        from cdvslam_tpu_torch.slam import fused
+        self._fused, self._replay = fused, fused.FusedStep.replay
+        check = self
+
+        def replay(step, g):
+            return check._replay_checked(step, g)
+        fused.FusedStep.replay = replay
+        return self
+
+    def __exit__(self, *exc):
+        self._fused.FusedStep.replay = self._replay
+
+    def _replay_checked(self, step, g):
+        import torch
+        from cdvslam_tpu_torch.ops import native
+        from cdvslam_tpu_torch.slam import kernels as slam_kernels
+        fused, slam = self._fused, step.slam
+        key = next(k for k, v in step.graphs.items() if v is g)
+        picked = (self.pick is not None and self.pick(slam)
+                  and not (self.corr_once and self.corr))
+        if key in self.keys and not picked:
+            return self._replay(step, g)
+        st = {k: v.clone() for k, v in slam.pg.state().items()}
+        inp = fused.FrameInputs(*(t.clone() for t in g.inputs))
+        self._replay(step, g)
+        counts = [c.count for c in native.COUNTERS]
+        kernel, taken = slam_kernels.corr_pyramid_cl, []
+
+        def keep(*args):
+            taken.append(tuple(a.clone() for a in args[:6]))
+            return kernel(*args)
+        step.off_path = True
+        slam_kernels.corr_pyramid_cl = keep
+        try:
+            with torch.no_grad():
+                mm, dP = fused.fused_body(slam, st, inp, key)
+        finally:
+            slam_kernels.corr_pyramid_cl = kernel
+            step.off_path = False
+            for c, n in zip(native.COUNTERS, counts):
+                c.count = n
+        live = slam.pg.state()
+        diff = [k for k, v in st.items() if not torch.equal(v, live[k])]
+        if not torch.equal(mm, g.outputs[0]):
+            diff.append("mm")
+        if dP is not None and not torch.equal(dP, g.outputs[1]):
+            diff.append("dP")
+        self.keys.setdefault(key, []).append(diff)
+        if picked:
+            self.corr.append(taken[0])
+
+    def summary(self, slam):
+        """Keys, captures, replays and pool bytes of ``slam``'s step, and
+        the checks (bitwise: every checked replay equal)."""
+        step = slam.fused
+        return {"keys": [[k.E_pad, k.KWIN, k.iterations, k.shift_span, k.network, str(k.dtype)]
+                         for k in step.graphs],
+                "captures": step.captures,
+                "replays": step.replays,
+                "pool_bytes": step.pool_bytes(),
+                "checked_keys": len(self.keys),
+                "checked_replays": sum(len(v) for v in self.keys.values()),
+                "bitwise": all(not d for v in self.keys.values() for d in v),
+                "differing": sorted({b for v in self.keys.values() for d in v for b in d})}
 
 
 def _hgmma_counts(lib):
@@ -738,19 +846,21 @@ def phase4(smi):
     the main stream and the main stream's wait on a prefetched frame's
     upload (CUDA events around each); on the host, the ``prefetch()``
     call and the plain call's upload (medians). The prefetch's mechanism
-    is checked directly: the median wait is below the median plain copy."""
+    is checked directly: the median wait is below the median plain copy.
+    Every steady-state frame is one CUDA graph replay (``SLAM.fused``);
+    outside the timed window each key's first replay is held to the eager
+    body bitwise (``ReplayCheck``), and the K1 inputs come from the eager
+    run of the last warm-up frame's replay."""
     import numpy as np
     import torch
     from cdvslam_tpu_torch.config import get_cfg
     from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
     from cdvslam_tpu_torch.slam import SLAM
-    from cdvslam_tpu_torch.slam import kernels as slam_kernels
     ht, wd, WARM, WIN, BLOCK, BLOCKS = 480, 752, 60, 100, 20, 20
     cfg = get_cfg()
     cfg.MOTION_PROBE_THR = -1.0
     frames, intr = _frames(ht, wd)
-    kernel = slam_kernels.corr_pyramid_cl
-    captured, prefetch_s = [], []
+    prefetch_s = []
 
     def prefetch(image):
         t = time.perf_counter()
@@ -766,20 +876,14 @@ def phase4(smi):
                 prefetch(frames[(f + 1) % 8])
             slam(f, frames[f % 8], intr)
 
-    def capture(*args):
-        captured.append(tuple(a.clone() for a in args[:6]))   # the tensors
-        return kernel(*args)
-
     corr_cuda.LAUNCHES.reset()
     flash_attn.LAUNCHES.reset()
     slam = SLAM(cfg, network="cdv", ht=ht, wd=wd, seed=0)
+    # the last warm-up frame's replay (pg.counter is past it when it runs)
+    check = ReplayCheck(pick=lambda s: s.pg.counter == WARM)
     t_start = time.perf_counter()
-    run(range(WARM - 1))
-    slam_kernels.corr_pyramid_cl = capture
-    try:
-        run(range(WARM - 1, WARM))
-    finally:
-        slam_kernels.corr_pyramid_cl = kernel
+    with check:
+        run(range(WARM))
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t_start
     upd0, corr0, attn0 = slam.stats["updates"], corr_cuda.LAUNCHES.count, flash_attn.LAUNCHES.count
@@ -802,6 +906,7 @@ def phase4(smi):
         torch.cuda.synchronize()
         block_s[prefetched].append(time.perf_counter() - t)
     log, slam.upload_log = slam.upload_log, None
+    graphs = check.summary(slam)
     poses, tstamps = slam.terminate()
     torch.cuda.synchronize()
     counts = {"corr": corr_cuda.LAUNCHES.count, "dino_flash_attn": flash_attn.LAUNCHES.count}
@@ -824,7 +929,9 @@ def phase4(smi):
         "corr_1_per_update": counts["corr"] == slam.stats["updates"] and win_corr == win_updates,
         "attn_12_per_frame": counts["dino_flash_attn"] == 12 * frames_run and win_attn == 12 * WIN,
         "one_update_per_frame": win_updates == WIN,
-        "corr_inputs_captured": len(captured) == 1,
+        "one_replay_per_steady_frame": graphs["replays"] == frames_run - 8,
+        "replays_bitwise_equal_eager": graphs["checked_keys"] > 0 and graphs["bitwise"],
+        "corr_inputs_captured": len(check.corr) == 1,
         "no_inactive_store": slam.pg.tw is None and len(slam.pg.ii_inac) == 0,
         "prefetch_no_slower": statistics.median(block_s[True]) <= med + (q3 - q1),
         "prefetch_wait_below_copy": (upload["prefetched_wait_device_ms"]
@@ -840,11 +947,11 @@ def phase4(smi):
           "upload": upload,
           "frames": frames_run, "updates": slam.stats["updates"],
           "keyframe_removals": slam.stats["keyframe_removals"], "edges": edges,
-          "launches": counts, "checks": checks, "card": smi,
+          "launches": counts, "graphs": graphs, "checks": checks, "card": smi,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "ok": ok})
     if not ok:
         raise SystemExit(f"phase 4: main path checks failed: {checks}")
-    return counts, captured[0], WIN / win_s
+    return counts, check.corr[0], WIN / win_s, graphs
 
 
 def phase4_f32(smi, nframes=40):
@@ -871,6 +978,7 @@ def phase4_f32(smi, nframes=40):
         slam(f, frames[f % 8], intr)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    replays = slam.fused.replays
     poses, _ = slam.terminate()
     torch.cuda.synchronize()
     counts = {"corr": corr_cuda.LAUNCHES.count, "dino_flash_attn_f32": flash_attn.LAUNCHES_F32.count,
@@ -880,6 +988,7 @@ def phase4_f32(smi, nframes=40):
               "attn_f32_12_per_frame": counts["dino_flash_attn_f32"] == 12 * nframes,
               "no_bf16_attn": counts["dino_flash_attn_bf16"] == 0,
               "corr_1_per_update": counts["corr"] == slam.stats["updates"],
+              "one_replay_per_steady_frame": replays == nframes - 8,
               "float32_network": slam.fdtype == torch.float32}
     ok = all(checks.values())
     emit({"phase": "4-f32", "frames": nframes, "fps": (nframes - 8) / run_s,
@@ -936,26 +1045,23 @@ def _frames(ht=480, wd=752):
 
 def phase6(smi):
     """The proximity loop-closure path at 480 x 752; returns the launch
-    counts of its run and the corr inputs of one update with loop edges."""
+    counts of its run, the corr inputs of one update with loop edges (from
+    the eager run of the first replay with loop edges) and the graphs'
+    summary. Frames with a replay check are left out of the FPS."""
     import numpy as np
     import torch
     from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
     from cdvslam_tpu_torch.slam import SLAM
-    from cdvslam_tpu_torch.slam import kernels as slam_kernels
     from cdvslam_tpu_torch.slam import runtime
     cfg = _loop_cfg()
     frames, intr = _frames()
     slam = SLAM(cfg, network="cdv", ht=480, wd=752, seed=0)
 
-    kernel, solve, run_gba = slam_kernels.corr_pyramid_cl, runtime.global_ba_solve, slam._run_global_ba
+    solve, run_gba = runtime.global_ba_solve, slam._run_global_ba
     build, loop = runtime.build_global_indices, runtime.edges_loop
     captured, gba_ms, index_ms, detections = {}, [], [], []
-
-    def capture_corr(*args):
-        pg = slam.pg
-        if "corr" not in captured and (pg.ii < pg.n - cfg.REMOVAL_WINDOW - 1).any():
-            captured["corr"] = tuple(a.clone() for a in args[:6])
-        return kernel(*args)
+    check = ReplayCheck(
+        pick=lambda s: bool((s.pg.ii < s.pg.n - cfg.REMOVAL_WINDOW - 1).any()))
 
     def capture_solve(*args, **kwargs):       # keeps the run's last global BA
         captured["gba"] = ([a.clone() if torch.is_tensor(a) else a for a in args],
@@ -981,30 +1087,36 @@ def phase6(smi):
             detections.append(len(kk))
         return kk, jj
 
-    slam_kernels.corr_pyramid_cl, runtime.global_ba_solve = capture_corr, capture_solve
+    runtime.global_ba_solve = capture_solve
     runtime.build_global_indices, runtime.edges_loop = timed_build, counted_loop
     slam._run_global_ba = timed_gba
     torch.cuda.reset_peak_memory_stats()
     corr_cuda.LAUNCHES.reset()
     flash_attn.LAUNCHES.reset()
-    frame_ms, with_gba, peak_E = [], [], 0
+    frame_ms, with_gba, checked, peak_E = [], [], [], 0
     try:
-        for f in range(LC_FRAMES):
-            g0 = slam.stats["global_ba"]
-            t = time.perf_counter()
-            slam(f, frames[f % 8], intr)
-            torch.cuda.synchronize()
-            frame_ms.append((time.perf_counter() - t) * 1e3)
-            with_gba.append(slam.stats["global_ba"] > g0)
-            peak_E = max(peak_E, slam.pg.E)
+        with check:
+            for f in range(LC_FRAMES):
+                g0 = slam.stats["global_ba"]
+                c0 = sum(len(v) for v in check.keys.values())
+                t = time.perf_counter()
+                slam(f, frames[f % 8], intr)
+                torch.cuda.synchronize()
+                frame_ms.append((time.perf_counter() - t) * 1e3)
+                with_gba.append(slam.stats["global_ba"] > g0)
+                checked.append(sum(len(v) for v in check.keys.values()) > c0)
+                peak_E = max(peak_E, slam.pg.E)
         runtime.global_ba_solve, runtime.edges_loop = solve, loop   # the run's only
         run_updates, run_gbas = slam.stats["updates"], slam.stats["global_ba"]
+        graphs = check.summary(slam)
         poses, _ = slam.terminate()
         torch.cuda.synchronize()
     finally:
-        slam_kernels.corr_pyramid_cl, runtime.global_ba_solve = kernel, solve
+        runtime.global_ba_solve = solve
         runtime.build_global_indices, runtime.edges_loop = build, loop
     counts = {"corr": corr_cuda.LAUNCHES.count, "dino_flash_attn": flash_attn.LAUNCHES.count}
+    if check.corr:
+        captured["corr"] = check.corr[0]
 
     # the captured global BA, solved twice
     same, gba_solve_ms = False, None
@@ -1017,7 +1129,8 @@ def phase6(smi):
         gba_shape = {"E": int(args[5].ii.shape[0]), "G": int(args[5].g_i.shape[0]),
                      "C": int(args[5].combo_g1.shape[0]), "N": kwargs["N"],
                      "K": int(args[1].shape[0])}
-    steady = [(ms, g) for f, (ms, g) in enumerate(zip(frame_ms, with_gba)) if f >= 8]
+    steady = [(ms, g) for f, (ms, g, c) in enumerate(zip(frame_ms, with_gba, checked))
+              if f >= 8 and not c]
     fps = {name: (len(sel) / (sum(sel) / 1e3) if sel else None, len(sel)) for name, sel in (
         ("with_global_ba", [ms for ms, g in steady if g]),
         ("without_global_ba", [ms for ms, g in steady if not g]))}
@@ -1031,6 +1144,8 @@ def phase6(smi):
         "attn_12_per_frame": counts["dino_flash_attn"] == 12 * LC_FRAMES,
         "global_ba_bitwise_equal": same,
         "loop_corr_inputs_captured": "corr" in captured,
+        "one_replay_per_steady_frame": graphs["replays"] == LC_FRAMES - 8,
+        "replays_bitwise_equal_eager": graphs["checked_keys"] > 0 and graphs["bitwise"],
     }
     ok = all(checks.values())
     emit({"phase": 6, "frames": LC_FRAMES, "keyframes": slam.pg.n,
@@ -1045,12 +1160,13 @@ def phase6(smi):
           "global_ba_captured": gba_shape if "gba" in captured else None,
           "fps_frames": {k: {"fps": v, "frames": n} for k, (v, n) in fps.items()},
           "launches": counts, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "graphs": graphs, "frames_with_replay_check": sum(checked),
           "checks": checks, "card": smi,
           "cuts": {"KEYFRAME_THRESH": 0.0, "weights": "random (seed 0)",
                    "frames": LC_FRAMES}, "ok": ok})
     if not ok:
         raise SystemExit(f"phase 6: loop-closure path checks failed: {checks}")
-    return counts, captured["corr"]
+    return counts, captured["corr"], graphs
 
 
 EUROC_INTR = (458.654, 457.296, 367.215, 248.375)
@@ -1299,7 +1415,10 @@ def _scale_adjustment_on_card():
 
 def phase7(smi):
     """The CDVO++ path at 480 x 752 and a DPT sub-run; returns the launch
-    counts of the 160-frame run."""
+    counts of the 160-frame run and the graphs' summary. The heads' tallies
+    are device tensors added to in place: inside a captured step the adds
+    are part of the graph and run at every replay; the warm-up and the
+    replay checks' eager runs (off the path) add nothing."""
     import numpy as np
     import torch
     from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
@@ -1314,7 +1433,8 @@ def phase7(smi):
         "adjustments", "openings")}
 
     def add(key, value):
-        tally[key] += value
+        if not slam.fused.off_path:
+            tally[key] += value
 
     filt_mask, dcw = slam.seg_head.filt_mask, runtime.dynamic_class_weight
     sel, adj = runtime.select_score, runtime.scale_adjustment
@@ -1349,10 +1469,12 @@ def phase7(smi):
     torch.cuda.reset_peak_memory_stats()
     corr_cuda.LAUNCHES.reset()
     flash_attn.LAUNCHES.reset()
+    check = ReplayCheck()
     try:
         t_start = time.perf_counter()
-        for f in range(WARM):
-            slam(f, frames[f % 8], intr)
+        with check:
+            for f in range(WARM):
+                slam(f, frames[f % 8], intr)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t_start
         upd0, corr0, attn0 = (slam.stats["updates"], corr_cuda.LAUNCHES.count,
@@ -1366,6 +1488,7 @@ def phase7(smi):
                "corr": corr_cuda.LAUNCHES.count - corr0,
                "attn": flash_attn.LAUNCHES.count - attn0}
         edges = slam.pg.E
+        graphs = check.summary(slam)
         poses, _ = slam.terminate()
         torch.cuda.synchronize()
     finally:
@@ -1383,6 +1506,8 @@ def phase7(smi):
         "corr_1_per_update": counts["corr"] == slam.stats["updates"] and win["corr"] == win["updates"],
         "attn_12_per_frame": counts["dino_flash_attn"] == 12 * frames_run and win["attn"] == 12 * WIN,
         "one_update_per_frame": win["updates"] == WIN,
+        "one_replay_per_steady_frame": graphs["replays"] == frames_run - 8,
+        "replays_bitwise_equal_eager": graphs["checked_keys"] > 0 and graphs["bitwise"],
         "dynamic_token_share_in_0_1": 0 < shares["dynamic_tokens"] < 1,
         "down_weighted_edges": t["down_weighted"] > 0,
         "no_zero_selected_score": t["zero_scores"] == 0 and t["selected"] == M * frames_run,
@@ -1401,49 +1526,52 @@ def phase7(smi):
           "frames": frames_run, "updates": stats["updates"],
           "keyframe_removals": stats["keyframe_removals"], "edges": edges,
           "shares": shares, "tally": t, "scale_adjustment_crafted": crafted,
-          "launches": counts, "checks": checks, "card": smi, "peak_mem_gb": peak_gb,
-          "dpt_subrun": dpt,
+          "launches": counts, "graphs": graphs, "checks": checks, "card": smi,
+          "peak_mem_gb": peak_gb, "dpt_subrun": dpt,
           "cuts": {"weights": "random (seed 0), heads random (seeds 14 and 12)",
                    "frames": frames_run}, "ok": ok})
     if not ok:
         raise SystemExit(f"phase 7: CDVO++ path checks failed: {checks}")
-    return counts
+    return counts, graphs
 
 
 def _dpt_subrun(frames, intr, nframes=40):
-    """DEPTH_HEAD="dpt_random" for nframes frames: ms per frame insert (a
-    synchronize on each side) and the checks."""
+    """DEPTH_HEAD="dpt_random" for nframes frames: ms per steady-state frame
+    (the frame insert and the update are one graph replay; a synchronize
+    on each side; frames that captured a key or ran a replay check left
+    out) and the checks."""
     import numpy as np
     import torch
     from cdvslam_tpu_torch.ops import flash_attn
     from cdvslam_tpu_torch.slam import SLAM
     slam = SLAM(_cdvo_pp_cfg("dpt_random"), network="cdv", ht=480, wd=752, seed=0)
-    insert, insert_ms = slam._insert_frame, []
-
-    def timed_insert(*args):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        insert(*args)
-        torch.cuda.synchronize()
-        insert_ms.append((time.perf_counter() - t) * 1e3)
-
-    slam._insert_frame = timed_insert
+    frame_ms, check = [], ReplayCheck()
     torch.cuda.reset_peak_memory_stats()
     attn0 = flash_attn.LAUNCHES.count
-    for f in range(nframes):
-        slam(f, frames[f % 8], intr)
+    with check:
+        for f in range(nframes):
+            c0 = (slam.fused.captures, sum(len(v) for v in check.keys.values()))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            slam(f, frames[f % 8], intr)
+            torch.cuda.synchronize()
+            if f >= 8 and c0 == (slam.fused.captures,
+                                 sum(len(v) for v in check.keys.values())):
+                frame_ms.append((time.perf_counter() - t) * 1e3)
+    graphs = check.summary(slam)
     n, M = slam.pg.n, slam.M
     depths = slam.pg.patches_[: n * M, 2]
     depths_ok = bool(torch.isfinite(depths).all() and (depths > 0).all()
                      and torch.isfinite(slam.pg.scale_[:n]).all())
     poses, _ = slam.terminate()
     torch.cuda.synchronize()
-    steady = insert_ms[8:]
-    return {"frames": nframes, "insert_ms_median": statistics.median(steady),
-            "insert_ms_min": min(steady), "insert_ms_max": max(steady),
+    return {"frames": nframes, "frame_ms_median": statistics.median(frame_ms),
+            "frame_ms_min": min(frame_ms), "frame_ms_max": max(frame_ms),
+            "frames_timed": len(frame_ms),
             "depth_range": [depths.min().item(), depths.max().item()],
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "graphs": graphs,
             "checks": {"dpt_depths_finite": depths_ok,
+                       "dpt_replays_bitwise_equal_eager": graphs["bitwise"],
                        "dpt_poses_finite": bool(np.isfinite(poses).all()),
                        "dpt_attn_12_per_frame":
                            flash_attn.LAUNCHES.count - attn0 == 12 * nframes}}
@@ -1465,8 +1593,12 @@ def _dpvo_cfg(strategy=None, loop=False):
 
 def phase8(smi):
     """The DPVO path at 480 x 752 (160 frames), a GRADIENT_BIAS sub-run and
-    a DPV-SLAM sub-run; returns the launch counts of the 160-frame run and
-    the corr inputs of its last warm-up update and of one loop update."""
+    a DPV-SLAM sub-run; returns the launch counts of the 160-frame run, the
+    corr inputs of its last warm-up update and of one loop update, and the
+    graphs' summaries. Every call of K1's wrapper is logged with its width
+    (the warm-ups' and captures' too: a replay makes no call, so the
+    launches are the counter's, and the widths those of every recorded
+    call)."""
     import numpy as np
     import torch
     from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
@@ -1475,12 +1607,10 @@ def phase8(smi):
     WARM, WIN = 60, 100
     frames, intr = _frames()
     kernel = slam_kernels.corr_pyramid_cl
-    channels, captured, capture = [], {}, [False]
+    channels = []
 
     def counted(*args):
         channels.append(args[0].shape[1])
-        if capture[0]:
-            captured["steady"] = tuple(a.clone() for a in args[:6])
         return kernel(*args)
 
     slam = SLAM(_dpvo_cfg(), network="dpv", ht=480, wd=752, seed=0)
@@ -1488,14 +1618,14 @@ def phase8(smi):
     corr_cuda.LAUNCHES.reset()
     flash_attn.LAUNCHES.reset()
     slam_kernels.corr_pyramid_cl = counted
+    check = ReplayCheck(pick=lambda s: s.pg.counter == WARM)
     try:
         t_start = time.perf_counter()
-        for f in range(WARM):
-            capture[0] = f == WARM - 1   # the last warm-up frame's update (its only one)
-            slam(f, frames[f % 8], intr)
+        with check:
+            for f in range(WARM):
+                slam(f, frames[f % 8], intr)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t_start
-        capture[0] = False
         upd0, corr0 = slam.stats["updates"], corr_cuda.LAUNCHES.count
         t0 = time.perf_counter()
         for f in range(WARM, WARM + WIN):
@@ -1504,6 +1634,7 @@ def phase8(smi):
         win_s = time.perf_counter() - t0
         win = {"updates": slam.stats["updates"] - upd0, "corr": corr_cuda.LAUNCHES.count - corr0}
         edges = slam.pg.E
+        graphs = check.summary(slam)
         poses, _ = slam.terminate()
         torch.cuda.synchronize()
     finally:
@@ -1515,12 +1646,14 @@ def phase8(smi):
     checks = {
         "poses_shape": list(poses.shape) == [frames_run, 7],
         "poses_finite": bool(np.isfinite(poses).all()),
-        "corr_1_per_update": counts["corr"] == stats["updates"] == len(channels)
+        "corr_1_per_update": counts["corr"] == stats["updates"]
                              and win["corr"] == win["updates"],
         "corr_at_C128": set(channels) == {128},
         "no_flash_attn": counts["dino_flash_attn"] == 0,
         "one_update_per_frame": win["updates"] == WIN,
-        "corr_inputs_captured": "steady" in captured,
+        "one_replay_per_steady_frame": graphs["replays"] == frames_run - 8,
+        "replays_bitwise_equal_eager": graphs["checked_keys"] > 0 and graphs["bitwise"],
+        "corr_inputs_captured": len(check.corr) == 1,
     }
     del slam
     torch.cuda.empty_cache()
@@ -1533,46 +1666,59 @@ def phase8(smi):
     emit({"phase": 8, "fps": WIN / win_s, "window_s": win_s, "warmup_s": warm_s,
           "frames": frames_run, "updates": stats["updates"],
           "keyframe_removals": stats["keyframe_removals"], "steady_edges": edges,
-          "launches": counts, "checks": checks, "card": smi, "peak_mem_gb": peak_gb,
-          "gradient_bias_subrun": gb, "dpv_slam_subrun": loop,
+          "launches": counts, "graphs": graphs, "checks": checks, "card": smi,
+          "peak_mem_gb": peak_gb, "gradient_bias_subrun": gb, "dpv_slam_subrun": loop,
           "cuts": {"weights": "random (seed 0)", "frames": frames_run,
                    "dpv_slam": f"KEYFRAME_THRESH=0, {LC_FRAMES} frames"}, "ok": ok})
     if not ok:
         raise SystemExit(f"phase 8: DPVO path checks failed: {checks}")
-    return counts, captured["steady"], loop_args, loop["launches"]
+    return counts, check.corr[0], loop_args, loop["launches"], graphs
 
 
 def _gradient_bias_subrun(frames, intr, nframes=40):
     """CENTROID_SEL_STRAT="GRADIENT_BIAS" for nframes frames: the selected
-    centres' range and the checks."""
+    centres' range and the checks. The range and the count of selections
+    are device tensors updated in place (in a captured step, at every
+    replay; not in the warm-up or a replay check's eager run)."""
     import numpy as np
     import torch
     from cdvslam_tpu_torch.slam import SLAM
     from cdvslam_tpu_torch.slam import runtime
-    select, picked = runtime.select_gradient_bias, []
+    select = runtime.select_gradient_bias
+    slam = SLAM(_dpvo_cfg("GRADIENT_BIAS"), network="dpv", ht=480, wd=752, seed=0)
+    inf = float("inf")
+    lo = torch.full((2,), inf, device=slam.device)
+    hi = torch.full((2,), -inf, device=slam.device)
+    count = torch.zeros((), device=slam.device)
 
     def recorded(*args):
         coords = select(*args)
-        picked.append(torch.stack([coords[..., 0].amin(), coords[..., 0].amax(),
-                                   coords[..., 1].amin(), coords[..., 1].amax()]))
+        if not slam.fused.off_path:
+            flat = coords.reshape(-1, 2)
+            lo.copy_(torch.minimum(lo, flat.amin(0)))
+            hi.copy_(torch.maximum(hi, flat.amax(0)))
+            count.add_(1)
         return coords
 
-    slam = SLAM(_dpvo_cfg("GRADIENT_BIAS"), network="dpv", ht=480, wd=752, seed=0)
+    check = ReplayCheck()
     runtime.select_gradient_bias = recorded
     try:
-        for f in range(nframes):
-            slam(f, frames[f % 8], intr)
+        with check:
+            for f in range(nframes):
+                slam(f, frames[f % 8], intr)
+        graphs = check.summary(slam)
         poses, _ = slam.terminate()
     finally:
         runtime.select_gradient_bias = select
-    xmin, xmax, ymin, ymax = torch.stack(picked).cpu().T
-    x_lo, x_hi = float(xmin.min()), float(xmax.max())
-    y_lo, y_hi = float(ymin.min()), float(ymax.max())
-    return {"frames": nframes, "selections": len(picked), "x_range": [x_lo, x_hi],
+    (x_lo, y_lo), (x_hi, y_hi) = lo.tolist(), hi.tolist()
+    selections = int(count.item())
+    return {"frames": nframes, "selections": selections, "x_range": [x_lo, x_hi],
             "y_range": [y_lo, y_hi], "keyframe_removals": slam.stats["keyframe_removals"],
+            "graphs": graphs,
             "checks": {
                 "gb_poses_finite": bool(np.isfinite(poses).all()),
-                "gb_one_selection_per_frame": len(picked) == nframes,
+                "gb_one_selection_per_frame": selections == nframes,
+                "gb_replays_bitwise_equal_eager": graphs["bitwise"],
                 "gb_centres_inside": x_lo >= 1 and x_hi < slam.wd4 - 1
                                      and y_lo >= 1 and y_hi < slam.ht4 - 1}}
 
@@ -1588,45 +1734,48 @@ def _dpv_slam_subrun(frames, intr):
     from cdvslam_tpu_torch.slam import kernels as slam_kernels
     cfg = _dpvo_cfg(loop=True)
     slam = SLAM(cfg, network="dpv", ht=480, wd=752, seed=0)
-    kernel, captured, channels = slam_kernels.corr_pyramid_cl, {}, []
+    kernel, channels = slam_kernels.corr_pyramid_cl, []
 
-    def capture_corr(*args):
-        pg = slam.pg
+    def logged(*args):
         channels.append(args[0].shape[1])
-        if "corr" not in captured and (pg.ii < pg.n - cfg.REMOVAL_WINDOW - 1).any():
-            captured["corr"] = tuple(a.clone() for a in args[:6])
         return kernel(*args)
 
     torch.cuda.reset_peak_memory_stats()
     corr_cuda.LAUNCHES.reset()
     flash_attn.LAUNCHES.reset()
-    slam_kernels.corr_pyramid_cl = capture_corr
+    slam_kernels.corr_pyramid_cl = logged
+    check = ReplayCheck(
+        pick=lambda s: bool((s.pg.ii < s.pg.n - cfg.REMOVAL_WINDOW - 1).any()))
     peak_E = 0
     try:
         t0 = time.perf_counter()
-        for f in range(LC_FRAMES):
-            slam(f, frames[f % 8], intr)
-            peak_E = max(peak_E, slam.pg.E)
+        with check:
+            for f in range(LC_FRAMES):
+                slam(f, frames[f % 8], intr)
+                peak_E = max(peak_E, slam.pg.E)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
+        graphs = check.summary(slam)
         poses, _ = slam.terminate()
         torch.cuda.synchronize()
     finally:
         slam_kernels.corr_pyramid_cl = kernel
     counts = {"corr": corr_cuda.LAUNCHES.count, "dino_flash_attn": flash_attn.LAUNCHES.count}
     return {"frames": LC_FRAMES, "keyframes": slam.pg.n, "fps": LC_FRAMES / run_s,
+            "fps_includes_replay_checks": graphs["checked_replays"],
             "loop_edges": slam.stats["loop_edges"], "global_ba": slam.stats["global_ba"],
             "updates": slam.stats["updates"], "peak_active_edges": peak_E,
             "launches": counts, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "corr_args": captured.get("corr"),
+            "graphs": graphs, "corr_args": check.corr[0] if check.corr else None,
             "checks": {
                 "lc_loop_edges": slam.stats["loop_edges"] > 0,
                 "lc_global_ba": slam.stats["global_ba"] > 0,
                 "lc_poses_finite": bool(np.isfinite(poses).all()),
                 "lc_corr_1_per_update_at_C128": counts["corr"] == slam.stats["updates"]
-                                                == len(channels) and set(channels) == {128},
+                                                and set(channels) == {128},
                 "lc_no_flash_attn": counts["dino_flash_attn"] == 0,
-                "lc_loop_corr_inputs_captured": "corr" in captured}}
+                "lc_replays_bitwise_equal_eager": graphs["bitwise"],
+                "lc_loop_corr_inputs_captured": bool(check.corr)}}
 
 
 def _synthetic_tartan(root, nframes=70, ht=480, wd=640):
@@ -1856,7 +2005,9 @@ def phase10(smi, fps_main):
                         "launches": fcounts}
     checks["fast_dpvo_poses_finite"] = fposes.shape == (HARNESS_FRAMES, 7) and bool(
         np.isfinite(fposes).all())
-    checks["fast_dpvo_corr_c128"] = (fcounts["corr"] == fslam.stats["updates"] == len(widths)
+    # a graph replay makes no wrapper call: the launches are the counter's,
+    # the widths those of every recorded call (warm-ups and captures)
+    checks["fast_dpvo_corr_c128"] = (fcounts["corr"] == fslam.stats["updates"]
                                     and set(widths) == {128})
     checks["fast_dpvo_no_attn"] = fcounts["dino_flash_attn"] == 0
     checks["fast_dpvo_removed_keyframes"] = fslam.stats["keyframe_removals"] > 0
@@ -1958,7 +2109,6 @@ def phase11(smi):
     import numpy as np
     import torch
     from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
-    from cdvslam_tpu_torch.slam import kernels as slam_kernels
     from cdvslam_tpu_torch.train import e2e_proof
     k2_checks, k2_errs, k2_times = _k2_proof_shape()
     torch.cuda.empty_cache()
@@ -1981,24 +2131,17 @@ def phase11(smi):
         torch.equal(weights[k], trained[k]) for k in trained)
     del model, state, trained
     torch.cuda.empty_cache()
-    kernel, calls, captured, slams = slam_kernels.corr_pyramid_cl, [0], [], []
-
-    def capture(*args):
-        if not slams:                          # the trained run at the first seed
-            calls[0] += 1
-            if calls[0] == PROOF_CORR_CALL:
-                captured.append(tuple(a.clone() for a in args[:6]))
-        return kernel(*args)
-
+    slams = []
+    # the K1 inputs of the trained run's (the first run's) PROOF_CORR_CALL-th
+    # update, a steady-state step: from the eager run of its replay
+    check = ReplayCheck(pick=lambda s: not slams and s.stats["updates"] == PROOF_CORR_CALL)
     corr_cuda.LAUNCHES.reset()
     flash_attn.reset_counts()
-    slam_kernels.corr_pyramid_cl = capture
-    try:
+    with check:
         t = time.perf_counter()
         result = e2e_proof.evaluate(weights, "cuda", sink=slams)
         eval_s = time.perf_counter() - t
-    finally:
-        slam_kernels.corr_pyramid_cl = kernel
+    captured = check.corr
     slam_counts = {"corr": corr_cuda.LAUNCHES.count, "fwd_bf16": flash_attn.LAUNCHES.count,
                    "fwd_f32": flash_attn.LAUNCHES_F32.count}
     corr = None
@@ -2272,11 +2415,20 @@ def _label_heads(slam):
             head.forward = forward
 
 
+# the host's CUDA runtime and driver calls that start work on the device
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                     "cudaMemsetAsync", "cudaStreamSynchronize", "cudaEventSynchronize")
+
+
 def _profile_window(slam, frames, intr, start, win, table_path):
     """win frames timed, then win more under torch.profiler: device busy
-    time and idle share (busy over the untraced wall time), launches per
-    frame, the port's two kernels, the heads' ranges (see _label_heads) and
-    the top kernels and host ops."""
+    time and idle share (busy over the untraced wall time), the kernels the
+    device ran per frame (inside CUDA graphs too), the host's launch calls
+    per frame (``HOST_LAUNCH_CALLS``: a graph replay is one
+    cudaGraphLaunch), the graph replays per frame (a SLAM without
+    ``fused``, an older checkout, has none), the port's two kernels, the
+    heads' ranges (see _label_heads) and the top kernels and host ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     # the same number of frames unprofiled first: the profiler's own host
@@ -2286,13 +2438,18 @@ def _profile_window(slam, frames, intr, start, win, table_path):
         slam(f, frames[f % 8], intr)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    step = getattr(slam, "fused", None)
+    replays0 = step.replays if step is not None else 0
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for f in range(start + win, start + 2 * win):
             slam(f, frames[f % 8], intr)
         torch.cuda.synchronize()
     traced_ms = (time.perf_counter() - t0) * 1e3
+    replays = (step.replays - replays0) if step is not None else 0
     events = prof.key_averages()
+    host_calls = {name: sum(e.count for e in events if e.key == name) / win
+                  for name in HOST_LAUNCH_CALLS}
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                and e.key not in HEAD_RANGES]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -2319,6 +2476,8 @@ def _profile_window(slam, frames, intr, start, win, table_path):
             "device_busy_ms_per_frame": busy_ms / win,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "kernel_launches_per_frame": launches / win,
+            "host_launch_calls_per_frame": {k: v for k, v in host_calls.items() if v},
+            "graph_replays_per_frame": replays / win,
             "port_kernels": ours, "heads": heads,
             "top_kernels_ms_per_frame": {e.key[:60]: e.self_device_time_total / 1e3 / win
                                          for e in top},
@@ -2370,11 +2529,13 @@ def _profile_train(out_dir, dtype="float32"):
           "top_host_ops_ms": {e.key[:60]: e.self_cpu_time_total / 1e3 for e in ops}})
 
 
-def profile_paths(out_dir):
+def profile_paths(out_dir, train=True):
     """The main path (60 warm-up frames), the loop-closure path (100
     warm-up frames: about 78 keyframes past the first loop detection), the
     CDVO++ path and the DPVO path (60 warm-up frames each), 20 frames
-    timed and 20 traced each."""
+    timed and 20 traced each (with the graph captures in those 40 frames:
+    on the loop path the edge count grows into new keys); then, with
+    ``train``, the two training steps."""
     import torch
     from cdvslam_tpu_torch.config import get_cfg
     from cdvslam_tpu_torch.slam import SLAM
@@ -2392,14 +2553,20 @@ def profile_paths(out_dir):
             slam(f, frames[f % 8], intr)
         torch.cuda.synchronize()
         g0 = slam.stats["global_ba"]
+        step = getattr(slam, "fused", None)
+        c0 = step.captures if step is not None else 0
         rec = _profile_window(slam, frames, intr, warm, 20,
                               out_dir / f"profile_{path}_path.txt")
         emit({"phase": "profile", "path": path, **rec, "edges": slam.pg.E,
-              "keyframes": slam.pg.n, "global_ba_in_windows": slam.stats["global_ba"] - g0})
+              "keyframes": slam.pg.n, "global_ba_in_windows": slam.stats["global_ba"] - g0,
+              "graph_captures_in_windows": (step.captures - c0) if step is not None else 0,
+              "graph_keys": len(step.graphs) if step is not None else 0,
+              "graph_pool_bytes": step.pool_bytes() if step is not None else 0})
         del slam
         torch.cuda.empty_cache()
-    _profile_train(out_dir)
-    _profile_train(out_dir, "bfloat16")
+    if train:
+        _profile_train(out_dir)
+        _profile_train(out_dir, "bfloat16")
 
 
 def main():
@@ -2427,15 +2594,16 @@ def main():
     attn_rec = phase2()
     train_rec = phase2_train()
     phase3()
-    counts, captured, fps_main = phase4(smi)
+    counts, captured, fps_main, graphs_main = phase4(smi)
     f32_counts = phase4_f32(smi)
     main_rec = corr_on_captured(5, captured)
-    lc_counts, lc_captured = phase6(smi)
+    lc_counts, lc_captured, graphs_loop = phase6(smi)
     loop_rec = corr_on_captured("6-corr", lc_captured)
     classic_counts = phase6_classic(smi, fps_main)
-    pp_counts = phase7(smi)
+    pp_counts, graphs_pp = phase7(smi)
     c128_rec = phase1(128, "8-corr", seed=8)
-    dpvo_counts, dpvo_captured, dpv_loop_captured, dpv_loop_counts = phase8(smi)
+    (dpvo_counts, dpvo_captured, dpv_loop_captured, dpv_loop_counts,
+     graphs_dpvo) = phase8(smi)
     dpvo_rec = corr_on_captured("8-update", dpvo_captured)
     dpv_loop_rec = corr_on_captured("8-loop-update", dpv_loop_captured)
     train = phase9(smi)
@@ -2443,6 +2611,12 @@ def main():
     proof = phase11(smi)
     phase12(smi)
 
+    # the steady-state graphs of each path: keys, captures, replays, the
+    # shared pool's bytes, and the replays held to the eager body
+    emit({"phase": "graphs", "paths": {"main": graphs_main, "loop": graphs_loop,
+                                       "cdvo_pp": graphs_pp, "dpvo": graphs_dpvo}})
+    counting = ("each steady-state frame is one CUDA graph replay; a replay adds the "
+                "launches its key's capture recorded, the warm-up before a capture adds none")
     ops_ms, bytes_ms = attn_rec["bound"]
     kernels = [
         {"name": "corr", "route": "cuda", "source": "cdvslam_tpu_torch/csrc/corr.cu",
@@ -2451,7 +2625,7 @@ def main():
          "ms": corr_rec["ms"], "plain_ms": corr_rec["plain_ms"],
          "bound_ms": corr_rec["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "per": "one update: both levels in one launch, bf16, E=9600, phase-1 inputs; "
-                "ms is the median of 5 rounds of 20 calls",
+                "ms is the median of 5 rounds of 20 calls", "launches_counting": counting,
          "rounds_ms": corr_rec["rounds_ms"],
          "bytes": corr_rec["bytes"], "box_share": corr_rec["box_share"],
          "ms_main_path": main_rec["ms"], "plain_ms_main_path": main_rec["plain_ms"],
@@ -2505,6 +2679,7 @@ def main():
          "plain_ms_proof_shape": proof["k2_times"]["serving_bf16"]["plain_ms"],
          "per": "one call, packed qkv (1, 1891, 1152) bf16 -> (1, 1891, 384); ms and "
                 "library_ms are medians of 5 alternating rounds of 20 calls",
+         "launches_counting": counting,
          "rounds": attn_rec["rounds"],
          "launches_train_bf16_step": train["runs"]["bf16"]["launches"]["fwd_bf16"],
          "train_shape_bf16_lse": train_rec["times"]["fwd_bf16"],

@@ -544,8 +544,10 @@ def test_colors_timing_and_viewer_on_the_card(card, monkeypatch):
     (gathered on the card every frame, shifted on removal) within one uint8
     level of the CPU run's, ``points()`` finite with one row per kept
     patch, the "patch", "keyframe" and "update" sections timed by CUDA
-    events (``utils.timer``), and the web viewer's ``state.json`` served
-    over loopback from the card's buffers."""
+    events (``utils.timer``: every frame once, its insert alone as "patch"
+    before the initialization, its insert and update in one graph replay
+    as "update" after it), and the web viewer's ``state.json`` served over
+    loopback from the card's buffers."""
     import json
     import urllib.request
     from cdvslam_tpu_torch.models import CDVNet
@@ -579,8 +581,9 @@ def test_colors_timing_and_viewer_on_the_card(card, monkeypatch):
         colors[str(dev)] = slam.pg.colors_[: slam.n].astype(int)
         assert slam.stats["keyframe_removals"] > 0
     assert np.abs(colors["cpu"] - colors[str(card)]).max() <= 1
-    assert len(ALL_TIMES["patch"]) == len(frames) and len(ALL_TIMES["update"]) > 0
+    assert len(ALL_TIMES["patch"]) == 8 and len(ALL_TIMES["update"]) == len(frames) - 8
     assert len(ALL_TIMES["keyframe"]) > 0 and all(t > 0 for t in ALL_TIMES["patch"])
+    assert all(t > 0 for t in ALL_TIMES["update"])
 
 
 def test_dry_run_on_the_card(card, tmp_path):
