@@ -9,14 +9,14 @@ Runs on the card unless ``--device cpu``. Writes
 saved_trajectories/NAME.txt (TUM format), trajectory_plots/NAME.pdf,
 NAME.ply and the COLMAP text model colmap_saving/NAME/ (with the first
 frame's intrinsics) under the working directory; ``--timeit`` prints the
-median of each timed section ("SLAM" per frame; "patch", "keyframe" and
-"update" inside it).
+tracer's summary of the run (``utils.trace.summary``: each span's count,
+mean and median, the steady frames' spans per frame, the counters, the
+device stages of the graph replays and the device gaps by host span) and
+the reader's spans.
 """
 import argparse
 import os
 from pathlib import Path
-
-import numpy as np
 
 
 def run(cfg, args):
@@ -24,11 +24,10 @@ def run(cfg, args):
     from .slam import SLAM
     from .slam.runtime import resolve_device
     from .slam.stream import image_stream, read_frames, start_reader, video_stream
-    from .utils.timer import ALL_TIMES, Timer
+    from .utils import trace
 
     device = resolve_device(args.device)
     state_dict = load_network(args.network, args.version)
-    ALL_TIMES.clear()
     slam = first_intrinsics = None
     is_video = os.path.isfile(args.imagedir)
     reader = video_stream if is_video else image_stream
@@ -39,19 +38,17 @@ def run(cfg, args):
             h, w, _ = image.shape
             slam = SLAM(cfg, network=args.version, ht=h, wd=w, viz=args.viz, device=device,
                         state_dict=state_dict)
-            slam.enable_timing = args.timeit
             first_intrinsics = intrinsics
 
         image = image[..., ::-1].copy()  # BGR -> RGB like the reference upload
-        with Timer("SLAM", enabled=args.timeit, device=device):
-            slam(t, image, intrinsics)
+        slam(t, image, intrinsics)
     th.join()
 
     poses, tstamps = slam.terminate()
 
     if args.timeit:
-        for name, times in ALL_TIMES.items():
-            print(f"{name}: median {np.median(times)*1000:.2f} ms over {len(times)} calls")
+        for line in trace.summary(slam.trace) + trace.summary(trace.TRACER.process):
+            print(line)
 
     if args.save_trajectory:
         Path("saved_trajectories").mkdir(exist_ok=True)

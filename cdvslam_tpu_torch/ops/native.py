@@ -41,6 +41,8 @@ SIGNATURES = {
                                                   ctypes.c_float, _I, _P],
                    "flash_attn_qkv_backward_dkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                                    ctypes.c_float, _I, _P]},
+    "trace": {"trace_stamp": [_P, _P, _I, _I, _I, _I, _P],
+              "trace_ticks": [_P, _I, _P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -25,11 +25,22 @@ whose state buffers moved (``PatchGraph._grow``) is captured again.
 Launch counts: a kernel wrapper counts its Python calls, and a replay
 makes none. ``FusedStep`` takes what the wrappers counted while a key was
 captured as the launches of one replay of it, and adds them at each
-replay; the warm-up run is not the path's work and counts nothing.
+replay; the warm-up run is not the path's work and counts nothing. The
+tracer's device stamps (``utils.trace``, ``ops.stamp``) are kernels of the
+graph like the others and count under their own counter
+(``ops.stamp.LAUNCHES``), never under the corr or attention counts.
+
+Device stamps: ``fused_body`` stamps its start, the end of the keyframe
+shift and, through ``SLAM._insert_frame`` and ``kernels.update_body``, the
+end of the networks, of the frame's writes and of the update operator,
+then its end, which moves the tracer's ring to its next row. Captured,
+they replay with the graph; the warm-up stamps nothing. After each replay
+``FusedStep`` names the row for the tracer (``row_done``).
 """
 from __future__ import annotations
 
 import gc
+import time
 from typing import NamedTuple, Optional
 
 import torch
@@ -60,12 +71,17 @@ def fused_body(slam, st, inp: FrameInputs, key: FusedKey):
     deferred keyframe shift (when ``key.shift_span``), the frame insert and
     one update. Returns (mm, dP): the keyframe motion magnitudes (2,) and
     the removed frame's relative pose, or None."""
+    stamp = slam._stamp
+    stamp(0)
     dP = None
     if key.shift_span:
         k = inp.ints[len(inp.ints) - len(SCALARS) + SCALARS.index("shift_k")].long()
         dP = shift_rows(st, k, key.shift_span, slam.M)
+    stamp(1)
     slam._insert_frame(st, inp, True)
-    return slam._update_step(st, inp, key), dP
+    mm = slam._update_step(st, inp, key)
+    stamp(5, advance=True)
+    return mm, dP
 
 
 class Captured:
@@ -95,18 +111,24 @@ class FusedStep:
         and ``floats`` the host blocks. Returns (mm, dP)."""
         slam = self.slam
         st = slam.pg.state()
+        captures, launched = self.captures, None
         if slam.device.type != "cuda":
             inp = FrameInputs(frame, torch.from_numpy(ints), torch.from_numpy(floats))
-            return fused_body(slam, st, inp, key)
-        ptrs = tuple(t.data_ptr() for t in st.values())
-        g = self.graphs.get(key)
-        if g is None or g.ptrs != ptrs:
-            self.graphs.pop(key, None)
-            g = self._capture(key, st, ptrs, frame, ints, floats)
+            out = fused_body(slam, st, inp, key)
         else:
-            self._fill(g.inputs, frame, ints, floats)
-        self.replay(g)
-        return g.outputs
+            ptrs = tuple(t.data_ptr() for t in st.values())
+            g = self.graphs.get(key)
+            if g is None or g.ptrs != ptrs:
+                self.graphs.pop(key, None)
+                g = self._capture(key, st, ptrs, frame, ints, floats)
+            else:
+                self._fill(g.inputs, frame, ints, floats)
+            launched = time.perf_counter_ns()
+            self.replay(g)
+            out = g.outputs
+        slam.trace.row_done("replay", slam.pg.counter - 1, steady=self.captures == captures,
+                            prefetched=slam._prefetched_frame, launch_ns=launched)
+        return out
 
     @staticmethod
     def _fill(inputs: FrameInputs, frame, ints, floats):

@@ -74,7 +74,7 @@ def corr_features(gmap_buf, fmap1, fmap2, coords, gmap_idx, jjm, radius=3):
 def update_body(model, poses, patches_win, intr_full, imap_buf, gmap_buf,
                 fmap1, fmap2, net, idx: EdgeIndex, t0, ht4: float,
                 wd4: float, mm_ij=None, weight_mul=None, score_win=None, *,
-                NW: int, KWIN: int, iterations: int):
+                NW: int, KWIN: int, iterations: int, stamp=None):
     """One update over the patch window ``patches_win`` (KWIN rows) and the
     E edges of ``idx`` (real where ``idx.aux.mask``).
 
@@ -86,7 +86,8 @@ def update_body(model, poses, patches_win, intr_full, imap_buf, gmap_buf,
     edges from frame mi to mj and over those from mj to mi (``mm_ij`` =
     (mi, mj), ints or 0-d tensors), computed on the post-BA poses, or None
     without mm_ij. ``t0``: the BA's first pose (int or 0-d tensor). With
-    ``iterations`` 0 no BA runs.
+    ``iterations`` 0 no BA runs. ``stamp(4)`` (the tracer's device stamp,
+    when given) marks the end of the correlation and the update operator.
     """
     P = patches_win.shape[-1]
     ii, jj, kk = idx.ii, idx.jj, idx.kk_local
@@ -108,6 +109,8 @@ def update_body(model, poses, patches_win, intr_full, imap_buf, gmap_buf,
         posenc = model.posenc(p_n)
         net_new, d, w = model.update(net[None], ctx, corrf, idx.aux, KWIN, posenc=posenc)
 
+    if stamp is not None:
+        stamp(4)
     center = coords[..., P // 2, P // 2, :]
     target = center[0] + d[0].to(poses.dtype)
     weight = w[0].to(poses.dtype)

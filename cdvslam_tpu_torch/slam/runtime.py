@@ -38,13 +38,23 @@ Each frame also gathers its patches' colours into ``pg.colors_dev``
 ``viz.plot`` and the viewers read. ``viz="snapshot"`` attaches the
 headless ``viz.viewer.SnapshotViewer``, any other true ``viz`` the
 browser viewer ``viz.web_viewer.WebViewer``; a viewer that cannot start
-raises. ``enable_timing`` times the sections "patch", "keyframe" and
-"update" into ``utils.timer.ALL_TIMES`` (CUDA events on the card).
+raises.
+
+Tracing (``utils.trace``, on unless ``trace=False``): each ``__call__`` is
+one ``frame`` span; on a steady frame its children are ``keyframe`` (the
+lagged decision, edge retirement and the new edges; its child ``wait`` is
+the host blocked on an earlier frame's motion), ``prepare`` (slots and the
+index and float blocks), ``launch`` (the upload and the graph replay) or
+``capture``, and ``after``. The device stamps the replay's stages and the
+upload itself; the stamps are read at the end of each steady frame, once
+their copy to the host has landed (the keyframe wait has already waited
+for later work), and at ``terminate()``: no synchronisation of their own. ``stats`` counts
+besides the aux-row cache's hits and misses and the keyframe shifts folded
+into a replay or run eagerly.
 """
 from __future__ import annotations
 
 import threading
-import time
 from pathlib import Path
 from warnings import warn
 
@@ -66,7 +76,7 @@ from ..models.patchifier import (
     select_gradient_bias, select_random, select_random_grid, select_score,
 )
 from ..ops.patchify import patchify
-from ..utils.timer import Timer
+from ..utils import trace as tracing
 from .fused import FrameInputs, FusedKey, FusedStep
 from .kernels import (
     BLOCK_ROWS, SCALARS, dynamic_class_weight, edge_index, median, motion_extrapolate,
@@ -125,7 +135,7 @@ def _alloc_slot(table, n, cap):
 class SLAM:
     def __init__(self, cfg=None, network="cdv", ht=480, wd=640, viz=False,
                  seed=0, device=None, state_dict=None, patch_sampler=None,
-                 dtype=None, score_noise=None, viewer_port=8642):
+                 dtype=None, score_noise=None, viewer_port=8642, trace=True):
         """``network``: "cdv" (CDVNet) or "dpv" (DPVO's VONet).
         ``state_dict``: the network's weights (e.g. ``models.convert.
         load_flax_params`` or ``vonet_state``); random weights from
@@ -140,6 +150,8 @@ class SLAM:
         ``score_noise(counter) -> (hi*wi,) uniforms in [1e-12, 1)``
         replaces the seeded draw of SCORE's Gumbel noise.
         ``viewer_port``: the web viewer's loopback port (0 takes a free one).
+        ``trace``: keep this SLAM's spans, counters and device stamps
+        (``utils.trace``); False records nothing.
         ``dtype``: one float type for the networks and the geometry, on the
         CPU only (float64 gives a high-precision run to hold float32 runs
         against); None: bfloat16 networks under MIXED_PRECISION, else
@@ -160,10 +172,17 @@ class SLAM:
         self.device = resolve_device(device)
         if self.device.type == "cuda" and dtype is not None:
             raise NotImplementedError("dtype is only ported for the CPU")
+        self.trace = tracing.new_record(self, self.device) if trace else tracing.OFF
+        with self.trace.span("construct"):
+            self._construct(network, ht, wd, viz, seed, state_dict, patch_sampler, dtype,
+                            score_noise, viewer_port)
+
+    def _construct(self, network, ht, wd, viz, seed, state_dict, patch_sampler, dtype,
+                   score_noise, viewer_port):
+        self.trace.start_stamps(self.device)
         self.network = network
         self.ht, self.wd = ht, wd
         self.is_initialized = False
-        self.enable_timing = False
 
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
@@ -200,7 +219,11 @@ class SLAM:
         self._setup_heads()
         self.tlist = []
         self.stats = {"updates": 0, "keyframe_removals": 0, "loop_edges": 0,
-                      "global_ba": 0, "lc_attempts": 0, "lc_applied": 0}
+                      "global_ba": 0, "lc_attempts": 0, "lc_applied": 0,
+                      "prep_cache_hits": 0, "prep_cache_misses": 0,
+                      "shifts_deferred": 0, "shifts_eager": 0}
+        if self.trace.on:
+            self.trace.stats = self.stats
         self._kf_queue = []   # lagged keyframe decisions (frame id, mm)
         # a keyframe removal whose device rows have not moved yet:
         # (row k, frame count before it, its id, the id of row k - 1)
@@ -212,9 +235,7 @@ class SLAM:
         self._prefetched = {}         # id(image) -> (image, device frame, upload event)
         self._prefetch_lock = threading.Lock()
         self._upload_stream = None
-        # a list, when set: _frame_on_device appends (prefetched, start event,
-        # end event, host seconds) per frame on the card (chip_smoke.py phase 4)
-        self.upload_log = None
+        self._prefetched_frame = None   # whether the last frame taken was prefetched
         # the JAX package warns and runs without a backend it cannot build;
         # the port raises (a missing cv2, a failed build of the library)
         self.long_term_lc = (LongTermLoopClosure(self.cfg, self)
@@ -365,41 +386,41 @@ class SLAM:
         ``__call__`` (a reader thread). At most 4 uploads are kept, keyed by
         ``id(image)`` (each entry holds the array, so its id is not reused
         while it waits); on the CPU it is a plain copy."""
-        host = torch.from_numpy(np.asarray(image))
-        if self.device.type != "cuda":
-            frame, ready = host.clone(), None
-        else:
-            if self._upload_stream is None:
-                self._upload_stream = torch.cuda.Stream(self.device)
-            with torch.cuda.stream(self._upload_stream):
-                frame = host.to(self.device, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record()
-        with self._prefetch_lock:
-            self._prefetched[id(image)] = (image, frame, ready)
-            if len(self._prefetched) > 4:
-                self._prefetched.pop(next(iter(self._prefetched)))
+        with self.trace.span("prefetch"):
+            host = torch.from_numpy(np.asarray(image))
+            if self.device.type != "cuda":
+                frame, ready = host.clone(), None
+            else:
+                if self._upload_stream is None:
+                    self._upload_stream = torch.cuda.Stream(self.device)
+                with torch.cuda.stream(self._upload_stream):
+                    frame = host.to(self.device, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record()
+            with self._prefetch_lock:
+                self._prefetched[id(image)] = (image, frame, ready)
+                if len(self._prefetched) > 4:
+                    self._prefetched.pop(next(iter(self._prefetched)))
 
     def _frame_on_device(self, image):
         """The frame as a tensor on the device: its prefetched upload (the
-        main stream waits on it), else a copy made now."""
-        with self._prefetch_lock:
-            _, frame, ready = self._prefetched.pop(id(image), (None, None, None))
-        log = self.upload_log if self.device.type == "cuda" else None
-        if log is not None:
-            t0 = time.perf_counter()
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-        if frame is None:
-            frame = torch.as_tensor(np.asarray(image)).to(self.device)
-        elif ready is not None:
-            main = torch.cuda.current_stream(self.device)
-            main.wait_event(ready)
-            frame.record_stream(main)
-        if log is not None:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            log.append((ready is not None, start, end, time.perf_counter() - t0))
+        main stream waits on it), else a copy made now. The device stamps
+        the upload (slots 6 and 7 of the frame's row): the plain copy, or
+        the main stream's wait on the prefetched one."""
+        tr = self.trace
+        with tr.span("upload") as sp:
+            with self._prefetch_lock:
+                _, frame, ready = self._prefetched.pop(id(image), (None, None, None))
+            self._prefetched_frame = frame is not None
+            sp.set(prefetched=self._prefetched_frame)
+            self._stamp(6)
+            if frame is None:
+                frame = torch.as_tensor(np.asarray(image)).to(self.device)
+            elif ready is not None:
+                main = torch.cuda.current_stream(self.device)
+                main.wait_event(ready)
+                frame.record_stream(main)
+            self._stamp(7)
         return frame
 
     def _n_candidates(self):
@@ -458,6 +479,7 @@ class SLAM:
             fmap, ictx, gmap, patch_row, clr = self._patches_dpv(img, cand)
         else:
             fmap, ictx, gmap, patch_row, clr = self._patches_cdv(st, img, cand, n, noise)
+        self._stamp(2)
         _put(st["colors_dev"], n1, clr)
         _put(st["intrinsics_"], n1, intr[None])
         _put(st["poses_"], n1, motion_extrapolate(st["poses_"], n, dfac)[None])
@@ -478,6 +500,7 @@ class SLAM:
         fs1 = fs.reshape(1)
         _put(st["fmap1_"], fs1, fmap.permute(0, 2, 3, 1))
         _put(st["fmap2_"], fs1, pyramidify(fmap, (4,))[0].permute(0, 2, 3, 1))
+        self._stamp(3)
 
     # ------------------------------------------------------------------
     def _edges_forw(self):
@@ -545,6 +568,7 @@ class SLAM:
         rel = np.stack([ii - ii[0], jj - jj[0], kk - kk[0]])
         key = (E_pad, KWIN, int(kk.min()) - k0, rel.tobytes())
         aux_rows = self._prep_cache.get(key)
+        self.stats["prep_cache_hits" if aux_rows is not None else "prep_cache_misses"] += 1
         if aux_rows is None:
             cdv = self.network == "cdv"
             aux = build_update_aux(ii, jj, kk, k0, KWIN, M=M if cdv else None, n_gseg=E_pad,
@@ -593,12 +617,18 @@ class SLAM:
             self.model, st["poses_"], st["patches_"].index_select(0, win), st["intrinsics_"],
             st["imap_"], st["gmap_"], st["fmap1_"], st["fmap2_"], net, idx, s["t0"],
             float(self.ht4), float(self.wd4), (s["mi"], s["mj"]), weight_mul, score_win,
-            NW=self.NW, KWIN=KWIN, iterations=key.iterations)
+            NW=self.NW, KWIN=KWIN, iterations=key.iterations, stamp=self._stamp)
         st["poses_"].copy_(poses)
         _put(st["patches_"], win, patches_win)
         st["net"][:E_pad] = net
         st["tw_buf"][:E_pad] = torch.cat([target, weight], 1)
         return mm
+
+    def _stamp(self, slot, advance=False):
+        """The tracer's device stamp (``utils.trace``), except in a run of
+        the step that is not the program's (``FusedStep.off_path``)."""
+        if not self.fused.off_path:
+            self.trace.stamp(slot, advance)
 
     def _key(self, E_pad, KWIN, iterations, shift_span=0):
         return FusedKey(E_pad, KWIN, iterations, shift_span, self.network, self.fdtype)
@@ -629,19 +659,23 @@ class SLAM:
         yet at this keyframe count, the update runs no local BA and the
         global BA follows it; otherwise, with a depth head, the scale
         adjustment follows it."""
-        cfg, pg = self.cfg, self.pg
+        cfg, pg, tr = self.cfg, self.pg, self.trace
         if pg.E == 0:
             return None
-        self.stats["updates"] += 1
-        t0 = max(pg.n - cfg.OPTIMIZATION_WINDOW, 1)
-        long_range = self._long_range()
-        E_pad = pg.bucket(pg.E)
-        k0, KWIN, rows = self._prepare_update(pg.ii, pg.jj, pg.kk, E_pad, pg.net_src)
-        ints = self._host_ints(rows, t0=t0, k0=k0, mi=pg.n - cfg.KEYFRAME_INDEX - 1,
-                               mj=pg.n - cfg.KEYFRAME_INDEX + 1)
-        mm = self._update_step(pg.state(), FrameInputs(None, self._upload(ints), None),
-                               self._key(E_pad, KWIN, 0 if long_range else 2))
-        self._after_update(t0, long_range)
+        with tr.span("update"):
+            self.stats["updates"] += 1
+            t0 = max(pg.n - cfg.OPTIMIZATION_WINDOW, 1)
+            long_range = self._long_range()
+            E_pad = pg.bucket(pg.E)
+            k0, KWIN, rows = self._prepare_update(pg.ii, pg.jj, pg.kk, E_pad, pg.net_src)
+            ints = self._host_ints(rows, t0=t0, k0=k0, mi=pg.n - cfg.KEYFRAME_INDEX - 1,
+                                   mj=pg.n - cfg.KEYFRAME_INDEX + 1)
+            self._stamp(0)
+            mm = self._update_step(pg.state(), FrameInputs(None, self._upload(ints), None),
+                                   self._key(E_pad, KWIN, 0 if long_range else 2))
+            self._stamp(5, advance=True)
+            tr.row_done("update", pg.counter)
+            self._after_update(t0, long_range)
         return mm
 
     def _fused_frame_update(self, image, n_row, fac, intrinsics, counter):
@@ -650,42 +684,50 @@ class SLAM:
         update as ``fused.fused_body``, in one CUDA graph replay on the card
         (``fused.FusedStep``); then, eagerly, the global BA or the scale
         adjustment. Returns mm."""
-        cfg, pg = self.cfg, self.pg
-        self.stats["updates"] += 1
-        t0 = max(pg.n - cfg.OPTIMIZATION_WINDOW, 1)
-        long_range = self._long_range()
-        span, shift_k, pend = 0, 0, self._pending_shift
-        if pend is not None:
-            k, n_before, t1, t0d = pend
-            if 1 <= n_before - 1 - k <= cfg.KEYFRAME_INDEX + 2:
-                span, shift_k, self._pending_shift = n_before - 1 - k, k, None
-            else:
-                self._apply_pending_shift()     # out of band: eagerly, as JAX does
-        fs, ps = self._alloc_frame_slots(n_row)
-        E_pad = pg.bucket(pg.E)
-        k0, KWIN, rows = self._prepare_update(pg.ii, pg.jj, pg.kk, E_pad, pg.net_src)
-        ints = self._host_ints(rows, n=n_row, fs=fs, ps=ps, t0=t0, k0=k0,
-                               mi=pg.n - cfg.KEYFRAME_INDEX - 1,
-                               mj=pg.n - cfg.KEYFRAME_INDEX + 1, shift_k=shift_k)
-        floats = self._host_floats(intrinsics, fac, counter)
-        key = self._key(E_pad, KWIN, 0 if long_range else 2, span)
-        mm, dP = self.fused.run(key, self._frame_on_device(image), ints, floats)
-        if span:
-            pg.delta[t1] = (t0d, dP.clone())
-        self._after_update(t0, long_range)
-        return self._keep_mm(mm)
+        cfg, pg, tr = self.cfg, self.pg, self.trace
+        with tr.span("prepare"):
+            self.stats["updates"] += 1
+            t0 = max(pg.n - cfg.OPTIMIZATION_WINDOW, 1)
+            long_range = self._long_range()
+            span, shift_k, pend = 0, 0, self._pending_shift
+            if pend is not None:
+                k, n_before, t1, t0d = pend
+                if 1 <= n_before - 1 - k <= cfg.KEYFRAME_INDEX + 2:
+                    span, shift_k, self._pending_shift = n_before - 1 - k, k, None
+                    self.stats["shifts_deferred"] += 1
+                else:
+                    self._apply_pending_shift()     # out of band: eagerly, as JAX does
+            fs, ps = self._alloc_frame_slots(n_row)
+            E_pad = pg.bucket(pg.E)
+            k0, KWIN, rows = self._prepare_update(pg.ii, pg.jj, pg.kk, E_pad, pg.net_src)
+            ints = self._host_ints(rows, n=n_row, fs=fs, ps=ps, t0=t0, k0=k0,
+                                   mi=pg.n - cfg.KEYFRAME_INDEX - 1,
+                                   mj=pg.n - cfg.KEYFRAME_INDEX + 1, shift_k=shift_k)
+            floats = self._host_floats(intrinsics, fac, counter)
+            key = self._key(E_pad, KWIN, 0 if long_range else 2, span)
+        captures = self.fused.captures
+        with tr.span("launch") as sp:
+            mm, dP = self.fused.run(key, self._frame_on_device(image), ints, floats)
+            if self.fused.captures != captures:
+                sp.rename("capture")
+        tr.root().set(steady=self.fused.captures == captures, E=pg.E, E_pad=E_pad)
+        with tr.span("after"):
+            if span:
+                pg.delta[t1] = (t0d, dP.clone())
+            self._after_update(t0, long_range)
+            return self._keep_mm(mm, counter)
 
-    def _keep_mm(self, mm):
+    def _keep_mm(self, mm, frame):
         """mm kept for the lagged keyframe decision: on the card a pinned
-        host copy made without waiting and the event that marks it done
-        (the graph's output is overwritten by the next replay)."""
+        host copy made without waiting, the event that marks it done (the
+        graph's output is overwritten by the next replay) and the frame."""
         if self.device.type != "cuda":
             return mm
         host = torch.empty(mm.shape, dtype=mm.dtype, pin_memory=True)
         host.copy_(mm, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        return host, done
+        return host, done, frame
 
     # ------------------------------------------------------------------
     def normalize(self):
@@ -709,6 +751,10 @@ class SLAM:
         """Global BA over the active and the inactive edges with their last
         targets and weights, after normalize(); poses from the oldest active
         edge's source frame on, and the first K patch rows, are solved."""
+        with self.trace.span("global_ba"):
+            self._global_ba()
+
+    def _global_ba(self):
         cfg, pg, M = self.cfg, self.pg, self.M
         self.stats["global_ba"] += 1
         n = pg.n
@@ -749,12 +795,16 @@ class SLAM:
     # ------------------------------------------------------------------
     def _decide_row(self, pid, mm):
         """A queued keyframe decision: physical frame id -> current row, or
-        None if the motion test passes or the row is gone."""
+        None if the motion test passes or the row is gone. The host waits
+        here for the frame whose motion it reads (span ``wait``)."""
         pg = self.pg
-        if isinstance(mm, tuple):           # a pinned copy on its way
-            mm, done = mm
-            done.synchronize()
-        if float(mm.sum()) / 2 >= self.cfg.KEYFRAME_THRESH:
+        with self.trace.span("wait"):
+            if isinstance(mm, tuple):           # a pinned copy on its way
+                mm, done, frame = mm
+                done.synchronize()
+                self.trace.observed(frame)
+            motion = float(mm.sum()) / 2
+        if motion >= self.cfg.KEYFRAME_THRESH:
             return None
         rows = np.nonzero(pg.tstamps_[: pg.n] == pid)[0]
         if len(rows) != 1 or rows[0] < 1:
@@ -806,6 +856,7 @@ class SLAM:
             return
         k, n, t1, t0 = self._pending_shift
         self._pending_shift = None
+        self.stats["shifts_eager"] += 1
         self.pg.delta[t1] = (t0, shift_rows(self.pg.state(), k, n - 1 - k, self.M))
 
     # ------------------------------------------------------------------
@@ -817,29 +868,42 @@ class SLAM:
 
     @torch.no_grad()
     def __call__(self, tstamp, image, intrinsics):
-        cfg, pg = self.cfg, self.pg
+        pg = self.pg
         if pg.n + 1 >= self.N:
             raise RuntimeError(
                 f"The buffer size is too small. You can increase it using "
                 f'"--opts BUFFER_SIZE={self.N * 2}"')
-        if self.is_initialized:
-            return self._call_fused(tstamp, image, intrinsics)
+        with self.trace.span("frame", frame=pg.counter, steady=False):
+            if self.is_initialized:
+                out = self._call_fused(tstamp, image, intrinsics)
+            else:
+                out = self._call_init(tstamp, image, intrinsics)
+        return out
 
+    def _call_init(self, tstamp, image, intrinsics):
+        """A frame before the initialization: the eager insert, the motion
+        probe, the new edges, and at 8 frames the 12 initializing updates."""
+        cfg, pg, tr = self.cfg, self.pg, self.trace
         n = pg.n
         if self.long_term_lc is not None:
             self.long_term_lc(image, n)
         self.tlist.append(tstamp)
         pg.tstamps_[n] = pg.counter
-        with self._timer("patch"):
+        with tr.span("insert"):
             fs, ps = self._alloc_frame_slots(n)
             ints = self._host_ints(np.zeros(0, np.int32), n=n, fs=fs, ps=ps)
             inp = FrameInputs(self._frame_on_device(image), self._upload(ints),
                               self._upload(self._host_floats(intrinsics, self._motion_fac(n),
                                                              pg.counter)))
+            self._stamp(0)
             self._insert_frame(pg.state(), inp, False)
+            self._stamp(5, advance=True)
+            tr.row_done("insert", pg.counter, prefetched=self._prefetched_frame)
         pg.counter += 1
         if n > 0 and cfg.MOTION_PROBE_THR >= 0:
-            if self.motion_probe() < cfg.MOTION_PROBE_THR:
+            with tr.span("probe"):
+                still = self.motion_probe() < cfg.MOTION_PROBE_THR
+            if still:
                 pg.delta[pg.counter - 1] = (pg.counter - 2, se3_identity(
                     dtype=self.gdtype, device=self.device))
                 return "Not keyframe"
@@ -849,8 +913,9 @@ class SLAM:
         self._append_factors()
         if pg.n == 8:
             self.is_initialized = True
-            for _ in range(12):
-                self.update()
+            with tr.span("init"):
+                for _ in range(12):
+                    self.update()
             self._attempt_loop_closure()
         self._show(image)
         return "Is keyframe"
@@ -862,32 +927,31 @@ class SLAM:
         in one step (``_fused_frame_update``), and queue this frame's
         decision."""
         cfg, pg = self.cfg, self.pg
-        with self._timer("keyframe"):
+        with self.trace.span("keyframe"):
             if len(self._kf_queue) >= 2:
                 self._kf_apply(self._decide_row(*self._kf_queue.pop(0)), defer_shift=True)
             else:
                 self._kf_apply(None)
-        n = pg.n
-        if self.long_term_lc is not None:
-            self.long_term_lc(image, n)
-        self.tlist.append(tstamp)
-        pg.tstamps_[n] = pg.counter
-        fac = self._motion_fac(n)
-        pg.counter += 1
-        pg.n += 1
-        pg.m += self.M
-        self._add_loop_edges()
-        self._append_factors()
-        with self._timer("update"):
-            mm = self._fused_frame_update(image, n, fac, intrinsics, pg.counter - 1)
+            n = pg.n
+            if self.long_term_lc is not None:
+                self.long_term_lc(image, n)
+            self.tlist.append(tstamp)
+            pg.tstamps_[n] = pg.counter
+            fac = self._motion_fac(n)
+            pg.counter += 1
+            pg.n += 1
+            pg.m += self.M
+            self._add_loop_edges()
+            self._append_factors()
+        mm = self._fused_frame_update(image, n, fac, intrinsics, pg.counter - 1)
         if pg.n - cfg.KEYFRAME_INDEX >= 1:
             self._kf_queue.append((int(pg.tstamps_[pg.n - cfg.KEYFRAME_INDEX]), mm))
         self._attempt_loop_closure()
         self._show(image)
+        # the device's rows whose copies have landed (the keyframe wait
+        # above has already waited for later work)
+        self.trace.collect()
         return "Is keyframe"
-
-    def _timer(self, name):
-        return Timer(name, enabled=self.enable_timing, device=self.device)
 
     def _show(self, image):
         """Hand a kept frame to the viewer."""
@@ -910,7 +974,14 @@ class SLAM:
         loop edges are active), and return the (F, 7) camera-to-world poses
         of every frame (removed frames interpolated through the delta
         chain) and their timestamps. It also converts the patch colours to
-        uint8 RGB in ``pg.colors_`` and joins the viewer."""
+        uint8 RGB in ``pg.colors_`` and joins the viewer. The tracer keeps
+        this SLAM's record from here on (``utils.trace.ended``)."""
+        with self.trace.span("terminate"):
+            out = self._terminate()
+        self.trace.end()
+        return out
+
+    def _terminate(self):
         pg = self.pg
         if not self.is_initialized:
             warn(f"SLAM terminates without initialization! Frame count: {pg.counter}")

@@ -10,6 +10,10 @@ Unlike the JAX package, a frame that cv2 cannot decode, an image
 directory with no image and a video with no frame raise; a reader that
 raises in its thread puts the exception on the queue, and
 ``read_frames`` raises it again in the consumer.
+
+Spans (``utils.trace``, the process's record): ``reader.decode`` around
+each frame's read, undistortion and crop on the reader thread, and
+``reader.wait`` around the consumer's wait for the next frame.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ from itertools import chain
 from pathlib import Path
 
 import numpy as np
+
+from ..utils import trace
 
 
 def load_calib(calib_path):
@@ -50,20 +56,21 @@ def image_stream(q, imagedir, calib, stride, skip=0, crop_border=None,
         raise FileNotFoundError(f"no .png, .jpeg or .jpg image in {imagedir}")
 
     for t, imfile in enumerate(image_list):
-        image = cv2.imread(str(imfile))
-        if image is None:
-            raise ValueError(f"cv2 cannot decode {imfile}")
-        if len(calib) > 4:
-            image = cv2.undistort(image, K, calib[4:])
+        with trace.span("reader.decode"):
+            image = cv2.imread(str(imfile))
+            if image is None:
+                raise ValueError(f"cv2 cannot decode {imfile}")
+            if len(calib) > 4:
+                image = cv2.undistort(image, K, calib[4:])
 
-        intrinsics = np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]])
-        if crop_border is not None:
-            by, bx = crop_border
-            image = image[by:-by if by else None, bx:-bx if bx else None]
-            intrinsics[2] -= bx
-            intrinsics[3] -= by
-        h, w, _ = image.shape
-        image = image[: h - h % 16, : w - w % 16]
+            intrinsics = np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]])
+            if crop_border is not None:
+                by, bx = crop_border
+                image = image[by:-by if by else None, bx:-bx if bx else None]
+                intrinsics[2] -= bx
+                intrinsics[3] -= by
+            h, w, _ = image.shape
+            image = image[: h - h % 16, : w - w % 16]
 
         if use_tstamp_names:
             t = float(imfile.stem)
@@ -90,15 +97,17 @@ def video_stream(q, imagedir, calib, stride, skip=0):
             ret, _ = cap.read()
             if not ret:
                 break
-        ret, image_next = cap.read()
+        with trace.span("reader.decode"):
+            ret, image_next = cap.read()
+            if ret:
+                image = image_next
+                if len(calib) > 4:
+                    image = cv2.undistort(image, K, calib[4:])
+                image = cv2.resize(image, None, fx=0.5, fy=0.5)
+                h, w, _ = image.shape
+                image = image[: h - h % 16, : w - w % 16]
         if not ret:
             break
-        image = image_next
-        if len(calib) > 4:
-            image = cv2.undistort(image, K, calib[4:])
-        image = cv2.resize(image, None, fx=0.5, fy=0.5)
-        h, w, _ = image.shape
-        image = image[: h - h % 16, : w - w % 16]
 
         intrinsics = np.array([K[0, 0] / 2, K[1, 1] / 2, K[0, 2] / 2, K[1, 2] / 2])
         q.put((t, image, intrinsics))
@@ -132,7 +141,8 @@ def read_frames(q):
     """Yield the reader's (t, image, intrinsics) until its end marker;
     raises what the reader thread raised."""
     while True:
-        t, image, intrinsics = q.get()
+        with trace.span("reader.wait"):
+            t, image, intrinsics = q.get()
         if isinstance(image, BaseException):
             raise RuntimeError("the frame reader failed") from image
         if t < 0:

@@ -1,2 +1,1 @@
-"""Utilities (port of ``cdvslam_tpu.utils``)."""
-from .timer import Timer, ALL_TIMES  # noqa: F401
+"""Utilities: the port's tracer (``utils.trace``)."""

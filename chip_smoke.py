@@ -133,7 +133,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      loop_path, PNGs, a calibration file and a TUM ground truth): ``python
      -m cdvslam_tpu_torch.demo`` in a subprocess with --save_trajectory
      --plot --save_ply --save_colmap --timeit (exit 0, the files, finite
-     poses, the timed sections); ``eval.harness.run_sequence`` with
+     poses, the tracer's summary: its spans, device stages and clock); ``eval.harness.run_sequence`` with
      default_cdvo.yaml and ``evaluate_against_tum_gt``: the harness's FPS
      over frames 60-119 beside phase 4's, a finite ATE (random weights: no
      accuracy figure), K1 once per update and K2 12 times per frame; the
@@ -232,7 +232,7 @@ def cuda_time(fn, reps, warmup=2):
     import torch
     for _ in range(warmup):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)  # timing events
     torch.cuda.synchronize()
     start.record()
     for _ in range(reps):
@@ -842,11 +842,12 @@ def phase4(smi):
     the prefetched block second): the prefetched blocks' median time must
     not exceed the others' median by more than the others' own spread
     (their interquartile range). Over the blocks the upload itself is
-    timed (``SLAM.upload_log``): on the device, the plain call's copy on
-    the main stream and the main stream's wait on a prefetched frame's
-    upload (CUDA events around each); on the host, the ``prefetch()``
-    call and the plain call's upload (medians). The prefetch's mechanism
-    is checked directly: the median wait is below the median plain copy.
+    timed by the SLAM's tracer (``utils.trace``): on the device, the plain
+    call's copy on the main stream and the main stream's wait on a
+    prefetched frame's upload (the ``upload`` stage of each frame's stamped
+    row); on the host, the ``prefetch`` spans and the frame's ``upload``
+    spans (medians). The prefetch's mechanism is checked directly: the
+    median wait is below the median plain copy.
     Every steady-state frame is one CUDA graph replay (``SLAM.fused``);
     outside the timed window each key's first replay is held to the eager
     body bitwise (``ReplayCheck``), and the K1 inputs come from the eager
@@ -856,16 +857,14 @@ def phase4(smi):
     from cdvslam_tpu_torch.config import get_cfg
     from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
     from cdvslam_tpu_torch.slam import SLAM
+    from cdvslam_tpu_torch.utils import trace
     ht, wd, WARM, WIN, BLOCK, BLOCKS = 480, 752, 60, 100, 20, 20
     cfg = get_cfg()
     cfg.MOTION_PROBE_THR = -1.0
     frames, intr = _frames(ht, wd)
-    prefetch_s = []
 
     def prefetch(image):
-        t = time.perf_counter()
         slam.prefetch(image)
-        prefetch_s.append(time.perf_counter() - t)
 
     def run(fs, prefetch=prefetch):
         """Frames fs, each prefetched while the one before it runs."""
@@ -896,8 +895,7 @@ def phase4(smi):
     win_attn = flash_attn.LAUNCHES.count - attn0
     edges = slam.pg.E
     block_s = {False: [], True: []}
-    prefetch_s.clear()
-    slam.upload_log = []
+    blocks_ns = time.perf_counter_ns()
     for b in range(BLOCKS):
         first = WARM + WIN + b * BLOCK
         t = time.perf_counter()
@@ -905,7 +903,11 @@ def phase4(smi):
         run(range(first, first + BLOCK), prefetch=prefetch if prefetched else None)
         torch.cuda.synchronize()
         block_s[prefetched].append(time.perf_counter() - t)
-    log, slam.upload_log = slam.upload_log, None
+    slam.trace.flush()
+    rows = [r for r in trace.raw_rows(slam.trace, "replay") if r.frame >= WARM + WIN]
+    uploads = [e for e in trace.raw_spans(slam.trace, "upload") if e[5] >= WARM + WIN]
+    prefetch_ns = [e[3] - e[2] for e in trace.raw_spans(slam.trace, "prefetch")
+                   if e[2] >= blocks_ns]
     graphs = check.summary(slam)
     poses, tstamps = slam.terminate()
     torch.cuda.synchronize()
@@ -913,16 +915,19 @@ def phase4(smi):
     frames_run = WARM + WIN + BLOCK * BLOCKS
     q1, med, q3 = statistics.quantiles(block_s[False], n=4)
     prefetch_ratio = statistics.median(block_s[True]) / med
-    upload = {  # ms: device (CUDA events on the main stream) and host medians
-        "plain_copy_device_ms": statistics.median(
-            s.elapsed_time(e) for p, s, e, _ in log if not p),
-        "prefetched_wait_device_ms": statistics.median(
-            s.elapsed_time(e) for p, s, e, _ in log if p),
-        "plain_upload_host_ms": 1e3 * statistics.median(h for p, _, _, h in log if not p),
-        "prefetched_take_host_ms": 1e3 * statistics.median(h for p, _, _, h in log if p),
-        "prefetch_call_host_ms": 1e3 * statistics.median(prefetch_s),
-        "frames": {"plain": sum(not p for p, *_ in log), "prefetched": sum(p for p, *_ in log)},
-        "frame_bytes": frames[0].nbytes}
+    upload = {  # ms: device (the tracer's stamps on the main stream) and host medians
+        "plain_copy_device_ms": 1e-6 * statistics.median(
+            r.stages["upload"] for r in rows if not r.prefetched),
+        "prefetched_wait_device_ms": 1e-6 * statistics.median(
+            r.stages["upload"] for r in rows if r.prefetched),
+        "plain_upload_host_ms": 1e-6 * statistics.median(
+            e[3] - e[2] for e in uploads if not e[8]["prefetched"]),
+        "prefetched_take_host_ms": 1e-6 * statistics.median(
+            e[3] - e[2] for e in uploads if e[8]["prefetched"]),
+        "prefetch_call_host_ms": 1e-6 * statistics.median(prefetch_ns),
+        "frames": {"plain": sum(not r.prefetched for r in rows),
+                   "prefetched": sum(bool(r.prefetched) for r in rows)},
+        "rows_lost": slam.trace.lost_rows, "frame_bytes": frames[0].nbytes}
     checks = {
         "poses_shape": list(poses.shape) == [frames_run, 7],
         "poses_finite": bool(np.isfinite(poses).all()),
@@ -1267,7 +1272,7 @@ def phase6_classic(smi, fps_main):
         return timed
 
     def timed_pgo(*args, **kwargs):            # on the worker's stream
-        ends = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ends = [torch.cuda.Event(True) for _ in range(2)]  # timing events
         ends[0].record()
         out = run_pgo(*args, **kwargs)
         ends[1].record()
@@ -1893,7 +1898,8 @@ def phase10(smi, fps_main):
     - the demo, ``python -m cdvslam_tpu_torch.demo`` in a subprocess in the
       sequence's directory with ``--save_trajectory --plot --save_ply
       --save_colmap --timeit --opts MOTION_PROBE_THR -1`` (its default
-      stride 2): exit 0, its files written, finite poses, its timed sections;
+      stride 2): exit 0, its files written, finite poses, the tracer's
+      summary (the frame's spans, the reader's, the device stages, the clock);
     - the harness, ``eval.harness.run_sequence`` (reader thread, BGR -> RGB,
       SLAM, terminate) with ``config/default_cdvo.yaml`` and
       MOTION_PROBE_THR=-1, then ``evaluate_against_tum_gt``: FPS over frames
@@ -1948,10 +1954,13 @@ def phase10(smi, fps_main):
             np.isfinite(traj).all())
     else:
         checks["demo_poses_finite"] = False
-    out["demo_timeit"] = [line for line in r.stdout.splitlines() if ": median " in line]
+    out["demo_timeit"] = [line for line in r.stdout.splitlines()
+                          if line.startswith(("span ", "steady frames", "device ", "clock"))]
     checks["demo_timeit_sections"] = all(
-        any(line.startswith(f"{s}: ") for line in out["demo_timeit"])
-        for s in ("SLAM", "patch", "update", "keyframe"))
+        any(line.startswith(s) for line in out["demo_timeit"])
+        for s in ("span frame: ", "span insert: ", "span keyframe: ", "span prepare: ",
+                  "span launch: ", "span reader.decode: ", "device stages", "device gaps",
+                  "clock: "))
     if r.returncode != 0:
         out["demo_stderr_tail"] = r.stderr[-3000:]
 

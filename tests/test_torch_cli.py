@@ -1,7 +1,7 @@
 """The port's entry points on the CPU: ``python -m cdvslam_tpu_torch.demo
 --device cpu`` on a rendered image directory in a temporary working
 directory (its trajectory, plot, PLY and COLMAP files and its ``--timeit``
-sections), the demo and the dataset evaluations refusing to run without a
+summary of the tracer's spans, counters and stages), the demo and the dataset evaluations refusing to run without a
 card unless told, and the trainer's in-training validation: ``train.cli``
 with ``--eval_every 1`` calls ``eval.tartan.evaluate`` with the weights
 under training (the call recorded), and the validation itself on a small
@@ -52,8 +52,12 @@ def test_demo_writes_its_files_on_the_cpu(image_dir, tmp_path):
          "PATCHES_PER_FRAME", "8", "BUFFER_SIZE", "64"],
         cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
-    for section in ("SLAM", "patch", "update", "keyframe"):
-        assert f"{section}: median" in r.stdout, section
+    for span in ("frame", "insert", "update", "keyframe", "prepare", "launch", "after",
+                 "terminate", "reader.decode", "reader.wait"):
+        assert f"span {span}: " in r.stdout and " median " in r.stdout, span
+    for line in ("steady frames: ", "counters: updates", "device stages (ms per steady replay",
+                 "device gaps (ms per steady frame"):
+        assert line in r.stdout, line
     traj = np.loadtxt(tmp_path / "saved_trajectories" / "run.txt")
     assert traj.shape == (12, 8) and np.isfinite(traj).all()
     assert (tmp_path / "trajectory_plots" / "run.pdf").read_bytes()[:4] == b"%PDF"

@@ -543,15 +543,17 @@ def test_colors_timing_and_viewer_on_the_card(card, monkeypatch):
     ``test_float32_cdv_slam_on_the_card_matches_the_cpu``: the patch colours
     (gathered on the card every frame, shifted on removal) within one uint8
     level of the CPU run's, ``points()`` finite with one row per kept
-    patch, the "patch", "keyframe" and "update" sections timed by CUDA
-    events (``utils.timer``: every frame once, its insert alone as "patch"
-    before the initialization, its insert and update in one graph replay
-    as "update" after it), and the web viewer's ``state.json`` served over
-    loopback from the card's buffers."""
+    patch, the frame's phases timed by the tracer (``utils.trace``: every
+    frame one ``frame`` span, its insert alone as ``insert`` before the
+    initialization, after it ``keyframe`` and the graph replay's
+    ``launch`` or ``capture``; on the device one stamped row per insert,
+    graph replay and eager update, their stages in stamp order, no row
+    lost), and the web viewer's ``state.json`` served over loopback from
+    the card's buffers."""
     import json
     import urllib.request
     from cdvslam_tpu_torch.models import CDVNet
-    from cdvslam_tpu_torch.utils.timer import ALL_TIMES
+    from cdvslam_tpu_torch.utils import trace
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     cfg = get_cfg()
@@ -562,12 +564,10 @@ def test_colors_timing_and_viewer_on_the_card(card, monkeypatch):
     frames = [(rng.rand(64, 96, 3) * 255).astype(np.uint8) for _ in range(12)]
     intr = np.array([80.0, 80.0, 48.0, 32.0], np.float32)
     colors = {}
-    ALL_TIMES.clear()
     for dev in ("cpu", card):
         on_card = dev != "cpu"
         slam = SLAM(cfg, "cdv", ht=64, wd=96, device=dev, seed=3, state_dict=state,
                     viz=on_card, viewer_port=0)
-        slam.enable_timing = on_card
         for f, img in enumerate(frames):
             slam(f, img, intr)
         if on_card:
@@ -581,9 +581,20 @@ def test_colors_timing_and_viewer_on_the_card(card, monkeypatch):
         colors[str(dev)] = slam.pg.colors_[: slam.n].astype(int)
         assert slam.stats["keyframe_removals"] > 0
     assert np.abs(colors["cpu"] - colors[str(card)]).max() <= 1
-    assert len(ALL_TIMES["patch"]) == 8 and len(ALL_TIMES["update"]) == len(frames) - 8
-    assert len(ALL_TIMES["keyframe"]) > 0 and all(t > 0 for t in ALL_TIMES["patch"])
-    assert all(t > 0 for t in ALL_TIMES["update"])
+    rec = slam.trace
+    assert rec.device.startswith("cuda") and rec.ended and rec.lost_rows == 0
+    tot = rec.totals
+    assert tot["frame"][0] == len(frames) and tot["insert"][0] == 8
+    assert tot["keyframe"][0] == len(frames) - 8
+    assert tot.get("launch", [0])[0] + tot.get("capture", [0])[0] == len(frames) - 8
+    assert all(v[1] > 0 for v in tot.values())
+    rows = trace.raw_rows(rec)
+    kinds = [r.kind for r in rows]
+    assert kinds.count("insert") == 8 and kinds.count("replay") == len(frames) - 8
+    assert kinds.count("update") == 24
+    for r in rows:
+        assert min(r.stages.values()) >= 0 and r.end_ns > r.start_ns
+        assert r.kind == "update" or r.stages["features"] > 0
 
 
 def test_dry_run_on_the_card(card, tmp_path):
@@ -601,8 +612,10 @@ def test_dry_run_on_the_card(card, tmp_path):
 def test_prefetch_from_a_reader_thread_on_the_card(card):
     """``SLAM.prefetch`` on the card from a reader thread: each frame's
     upload on the upload stream arrives bitwise, and the same frames give
-    bitwise the poses of plain calls (the float32 "cdv" SLAM); the upload
-    log records one wait per prefetched frame."""
+    bitwise the poses of plain calls (the float32 "cdv" SLAM); the
+    tracer's device rows record one stamped upload per frame, prefetched
+    or not as it was."""
+    from cdvslam_tpu_torch.utils import trace
     import queue
     import threading
     rng = np.random.RandomState(0)
@@ -614,7 +627,6 @@ def test_prefetch_from_a_reader_thread_on_the_card(card):
     runs = []
     for prefetch in (False, True):
         slam = SLAM(cfg, "cdv", ht=64, wd=96, device=card, seed=0)
-        slam.upload_log = []
         q = queue.Queue(maxsize=2)
 
         def reader():
@@ -634,7 +646,61 @@ def test_prefetch_from_a_reader_thread_on_the_card(card):
             slam(f, img, intr)
         th.join(timeout=60)
         assert not th.is_alive()
-        assert [p for p, *_ in slam.upload_log] == [prefetch] * len(frames)
         assert not slam._prefetched
         runs.append(slam.terminate()[0])
+        rows = [r for r in trace.raw_rows(slam.trace) if r.kind != "update"]
+        assert [r.prefetched for r in rows] == [prefetch] * len(frames)
+        assert all(r.stages["upload"] >= 0 for r in rows)
     assert np.array_equal(runs[0], runs[1])
+
+
+def test_stamps_inside_the_replay_on_the_card(card):
+    """The tracer's device stamps on the card (``utils.trace``,
+    ``csrc/trace.cu``): each steady frame's graph replay writes one row in
+    stamp order, read without a synchronisation of its own and none lost;
+    the device timer's offset from the host clock within 20 us and its
+    resolution at most 1 us; and per steady replay the stages' sum (first
+    to last stamp) within 5% plus 20 us of the device time CUDA events
+    measure around the replay. The stamp kernel counts under its own
+    launch counter, never under K1's."""
+    from cdvslam_tpu_torch.ops import stamp
+    from cdvslam_tpu_torch.slam import fused
+    from cdvslam_tpu_torch.utils import trace
+    cfg = get_cfg()
+    cfg.update(PATCHES_PER_FRAME=16, BUFFER_SIZE=64, MOTION_PROBE_THR=-1.0)
+    rng = np.random.RandomState(0)
+    frames = [(rng.rand(64, 96, 3) * 255).astype(np.uint8) for _ in range(40)]
+    intr = np.array([80.0, 80.0, 48.0, 32.0], np.float32)
+    slam = SLAM(cfg, "cdv", ht=64, wd=96, device=card, seed=0)
+    timed, replay = [], fused.FusedStep.replay
+
+    def evented(step, g):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        replay(step, g)
+        b.record()
+        timed.append((step.slam.pg.counter - 1, a, b))
+
+    corr0, stamps0 = corr_cuda.LAUNCHES.count, stamp.LAUNCHES.count
+    fused.FusedStep.replay = evented
+    try:
+        for f, img in enumerate(frames):
+            slam(f, img, intr)
+    finally:
+        fused.FusedStep.replay = replay
+    slam.terminate()
+    rec = slam.trace
+    assert corr_cuda.LAUNCHES.count - corr0 == slam.stats["updates"]
+    assert stamp.LAUNCHES.count - stamps0 >= 6 * len(timed)
+    assert rec.lost_rows == 0 and rec.clock["error_ns"] <= 20_000
+    assert 0 < rec.clock["resolution_ns"] <= 1000
+    rows = {r.frame: r for r in trace.raw_rows(rec, "replay")}
+    assert len(rows) == len(timed) == len(frames) - 8
+    steady = [(f, a.elapsed_time(b) * 1e6) for f, a, b in timed if rows[f].steady]
+    assert len(steady) >= 20 and rec.replay[0] == len(steady)
+    for f, ev_ns in steady:
+        row = rows[f]
+        order = [row.stages[k] for k in ("shift", "features", "patches", "update", "ba")]
+        assert min(order) >= 0 and sum(order) == row.end_ns - row.start_ns
+        assert abs((row.end_ns - row.start_ns) - ev_ns) <= 0.05 * ev_ns + 20_000, (f, ev_ns)
+    assert rec.gap[0] > 0 and all(v[1] >= 0 for v in rec.gaps.values())

@@ -5,7 +5,8 @@ within 1e-12; the image-directory reader on rendered PNGs under a
 4-number and an 8-number calibration and under ``crop_border``, and the
 video reader on an MJPG ``.avi`` written by cv2, every (t, image,
 intrinsics) bitwise equal; the reader's failures raised in the consumer;
-and ``Timer`` on the CPU."""
+and the tracer's host spans on the CPU (``utils.trace``, which replaced the
+section timer)."""
 import queue
 import time
 
@@ -20,7 +21,7 @@ import cdvslam_tpu.eval.harness as jax_harness  # noqa: E402
 import cdvslam_tpu.slam.stream as jax_stream  # noqa: E402
 from cdvslam_tpu_torch.eval import ate, harness  # noqa: E402
 from cdvslam_tpu_torch.slam import stream  # noqa: E402
-from cdvslam_tpu_torch.utils.timer import ALL_TIMES, Timer  # noqa: E402
+from cdvslam_tpu_torch.utils import trace  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -163,16 +164,17 @@ def test_reader_failures_raise_in_the_consumer(tmp_path):
 
 
 def test_timer_on_the_cpu():
-    ALL_TIMES.pop("sleep", None)
-    with Timer("sleep", device="cpu"):
+    """Two spans of one name on the host clock, their count and lengths;
+    a record that is off (``SLAM(trace=False)``) times nothing."""
+    owner = torch.nn.Module()
+    rec = trace.new_record(owner, torch.device("cpu"))
+    with rec.span("sleep"):
         time.sleep(0.02)
-    with Timer("sleep", enabled=False):
+    with trace.OFF.span("sleep"):
         time.sleep(0.01)
-
-    @Timer("sleep")
-    def nap():
+    with rec.span("sleep"):
         time.sleep(0.01)
-    nap()
-    assert len(ALL_TIMES["sleep"]) == 2
-    assert 0.02 <= ALL_TIMES["sleep"][0] < 1.0 and 0.01 <= ALL_TIMES["sleep"][1] < 1.0
-    assert not Timer("x", device=torch.device("cpu")).cuda and Timer("x", device="cuda").cuda
+    got = [(e[3] - e[2]) / 1e9 for e in trace.raw_spans(rec, "sleep")]
+    assert rec.totals["sleep"][0] == len(got) == 2
+    assert 0.02 <= got[0] < 1.0 and 0.01 <= got[1] < 1.0
+    assert rec.totals["sleep"][1] == sum(e[3] - e[2] for e in trace.raw_spans(rec, "sleep"))
