@@ -43,6 +43,7 @@ SIGNATURES = {
                                                    ctypes.c_float, _I, _P]},
     "trace": {"trace_stamp": [_P, _P, _I, _I, _I, _I, _P],
               "trace_ticks": [_P, _I, _P]},
+    "segsum": {"segment_sum_forward": [_P, _P, _P, _P, _I, _I, _I, _P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -49,8 +49,10 @@ index and float blocks), ``launch`` (the upload and the graph replay) or
 upload itself; the stamps are read at the end of each steady frame, once
 their copy to the host has landed (the keyframe wait has already waited
 for later work), and at ``terminate()``: no synchronisation of their own. ``stats`` counts
-besides the aux-row cache's hits and misses and the keyframe shifts folded
-into a replay or run eagerly.
+besides the aux-row cache's hits and misses, the keyframe shifts folded
+into a replay or run eagerly, and the segment-sum kernel's launches in the
+SLAM's calls (``segsum_launches``: a replay adds what its capture launched;
+0 on the CPU).
 """
 from __future__ import annotations
 
@@ -75,6 +77,7 @@ from ..models.patchifier import (
     coords_grid_with_index, extract_patches, pyramidify, random_candidates, seg_binary_score,
     select_gradient_bias, select_random, select_random_grid, select_score,
 )
+from ..ops import segsum_cuda
 from ..ops.patchify import patchify
 from ..utils import trace as tracing
 from .fused import FrameInputs, FusedKey, FusedStep
@@ -221,7 +224,7 @@ class SLAM:
         self.stats = {"updates": 0, "keyframe_removals": 0, "loop_edges": 0,
                       "global_ba": 0, "lc_attempts": 0, "lc_applied": 0,
                       "prep_cache_hits": 0, "prep_cache_misses": 0,
-                      "shifts_deferred": 0, "shifts_eager": 0}
+                      "shifts_deferred": 0, "shifts_eager": 0, "segsum_launches": 0}
         if self.trace.on:
             self.trace.stats = self.stats
         self._kf_queue = []   # lagged keyframe decisions (frame id, mm)
@@ -873,11 +876,13 @@ class SLAM:
             raise RuntimeError(
                 f"The buffer size is too small. You can increase it using "
                 f'"--opts BUFFER_SIZE={self.N * 2}"')
+        launches = segsum_cuda.LAUNCHES.count
         with self.trace.span("frame", frame=pg.counter, steady=False):
             if self.is_initialized:
                 out = self._call_fused(tstamp, image, intrinsics)
             else:
                 out = self._call_init(tstamp, image, intrinsics)
+        self.stats["segsum_launches"] += segsum_cuda.LAUNCHES.count - launches
         return out
 
     def _call_init(self, tstamp, image, intrinsics):
@@ -976,8 +981,10 @@ class SLAM:
         chain) and their timestamps. It also converts the patch colours to
         uint8 RGB in ``pg.colors_`` and joins the viewer. The tracer keeps
         this SLAM's record from here on (``utils.trace.ended``)."""
+        launches = segsum_cuda.LAUNCHES.count
         with self.trace.span("terminate"):
             out = self._terminate()
+        self.stats["segsum_launches"] += segsum_cuda.LAUNCHES.count - launches
         self.trace.end()
         return out
 

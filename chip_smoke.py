@@ -50,6 +50,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
      beside it. The float32 backward's error against the formula in
      float64 on the same values is recorded beside its 1e-4 rule
   3  bundle adjustment run twice at E = 9600, K = 2688: bitwise equal
+  3-segsum  the segment-sum kernel at each shape where the main path
+     calls it (the BA's plan_b, 40,960 rows of 6 x 6 in 256 segments;
+     plan_e, 20,480 rows of 6 in 43,008; plan_v, 20,480 rows of 6 in 16;
+     SoftAgg's 10,240 rows of 384 in 2,688): bitwise equal to its plain
+     version on the card and on the CPU and to a second call, within
+     float32's worst-case rounding of a float64 sum, one launch a sum;
+     device times (CUDA graph replays) against the gather +
+     torch.segment_reduce it replaced and the bytes bound, the plain
+     version's and an eager call's times
   4  the main path: SLAM(get_cfg(), "cdv", 480, 752) with seeded random
      weights and 8 seeded random frames cycled, each prefetched one frame
      ahead (SLAM.prefetch), 60 warm-up frames, one 100-frame timed
@@ -60,7 +69,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
      plain copy and the wait on a prefetched upload, CUDA events; host:
      the prefetch() call and the plain upload; the median wait below the
      median copy), terminate(); poses finite, corr launched once per update and flash
-     attention 12 times per frame, one graph replay per steady-state frame,
+     attention 12 times per frame, the segment-sum kernel 8 times per
+     update, one graph replay per steady-state frame,
      every key checked outside the timed window bitwise equal to the eager
      body; the corr inputs of the last warm-up frame's update are captured
   4-f32  40 frames of the main path with MIXED_PRECISION=False: FPS, poses
@@ -240,6 +250,22 @@ def cuda_time(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_time(fn, reps):
+    """Device ms per call of fn(): reps calls captured in one CUDA graph and
+    replayed between CUDA events, so the host's launch cost is left out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_time(graph.replay, 3) / reps
 
 
 class ReplayCheck:
@@ -832,6 +858,109 @@ def phase3():
         raise SystemExit("phase 3: BA is not bitwise repeatable (or did not move)")
 
 
+def _segsum_cases(gen):
+    """The main path's segment sums at their shapes, float32, from
+    ``ba.ba_solve``'s ids over phase 3's window (t0 12, N 16, its 9,600
+    edges padded to 10,240 with the padding dropped): the BA's plan_b
+    (40,960 rows of 6 x 6 in 256 segments), plan_e (20,480 rows of 6 in
+    43,008: a segment per (frame, patch)) and plan_v (20,480 rows of 6 in
+    16 segments of about 1,300 rows), and SoftAgg's (10,240 rows of 384
+    over the window's 2,688 patches). The BA's 1-D sums (plan_k) do not
+    run the kernel (``SegmentPlan.sum``)."""
+    import torch
+    dev, E_pad, N, t0 = "cuda", 10240, 16, 12
+    _, _, _, _, _, ii, jj, kk, K = _ba_window(gen)
+    pad = torch.zeros(E_pad - E, dtype=ii.dtype, device=dev)
+    ii, jj, kk = (torch.cat([a, pad]) for a in (ii, jj, kk))
+    mask = torch.arange(E_pad, device=dev) < E
+    ix, jx = ii - t0, jj - t0
+    vi, vj = ix >= 0, jx >= 0
+
+    def bid(a, b, va, vb):
+        return torch.where(va & vb & mask, a.clamp(0, N - 1) * N + b.clamp(0, N - 1),
+                           torch.full_like(a, N * N))
+    def eid(a, va):
+        return torch.where(va & mask, a.clamp(0, N - 1) * K + kk, torch.full_like(a, N * K))
+
+    def vid(a, va):
+        return torch.where(va & mask, a.clamp(0, N - 1), torch.full_like(a, N))
+    ids_b = torch.cat([bid(ix, ix, vi, vi), bid(jx, jx, vj, vj), bid(ix, jx, vi, vj),
+                       bid(jx, ix, vj, vi)])
+    ids_k = torch.where(mask, kk, torch.full_like(kk, K))
+
+    def rows(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    return {"ba_plan_b": (ids_b, N * N, rows(4 * E_pad, 6, 6)),
+            "ba_plan_e": (torch.cat([eid(ix, vi), eid(jx, vj)]), N * K, rows(2 * E_pad, 6)),
+            "ba_plan_v": (torch.cat([vid(ix, vi), vid(jx, vj)]), N, rows(2 * E_pad, 6)),
+            "softagg": (ids_k, K, rows(E_pad, 384))}
+
+
+def phase3_segsum():
+    """The segment-sum kernel at the main path's shapes: bitwise equal to
+    its plain version (the same order of summation) on the card and on
+    the CPU and to a second call, within the worst-case
+    float32 rounding of a float64 sum (segment length x epsilon x the sum
+    of |rows|), one launch a sum; device times
+    of the kernel and of the gather + torch.segment_reduce it replaces (5
+    alternating rounds of 20 calls captured in a CUDA graph, as the steady
+    frame runs them), the plain version's and an eager call's (host launch
+    cost included), against the bytes bound."""
+    import torch
+    from cdvslam_tpu_torch.ops import segsum_cuda
+    from cdvslam_tpu_torch.ops.scatter import SegmentPlan
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    recs, ok = {}, True
+    for name, (ids, S, vals) in _segsum_cases(gen).items():
+        plan = SegmentPlan(ids, S)
+
+        def library():
+            return torch.segment_reduce(vals[plan.order], "sum", lengths=plan.lengths, axis=0,
+                                        unsafe=True)[:S]
+        before = segsum_cuda.LAUNCHES.count
+        a, b = plan.sum(vals), plan.sum(vals)
+        torch.cuda.synchronize()
+        launches = segsum_cuda.LAUNCHES.count - before
+        keep = (ids >= 0) & (ids < S)
+        v64 = vals[keep].double()
+        ref = torch.zeros((S, *vals.shape[1:]), dtype=torch.float64, device="cuda")
+        mag = torch.zeros_like(ref)
+        ref.index_add_(0, ids[keep], v64)
+        mag.index_add_(0, ids[keep], v64.abs())
+        count = torch.bincount(ids[keep], minlength=S).view(-1, *[1] * (vals.dim() - 1))
+        err = (a.double() - ref).abs()
+        over = (err - count * torch.finfo(torch.float32).eps * mag).max().item()
+        D, kept = vals[0].numel(), int(keep.sum())
+        # each kept row and its 8 bytes of order read once, the offsets,
+        # the sums written once
+        nbytes = kept * (4 * D + 8) + 8 * (S + 1) + 4 * S * D
+        rounds = {"ms": [], "library_ms": []}
+        for _ in range(5):
+            rounds["ms"].append(graph_time(lambda: plan.sum(vals), 20))
+            rounds["library_ms"].append(graph_time(library, 20))
+        cpu_plan = SegmentPlan(ids.cpu(), S)
+        checks = {"bitwise_repeat": torch.equal(a, b),
+                  "bitwise_plain": torch.equal(a, segsum_cuda.segment_sum_plain(vals, plan)),
+                  "bitwise_plain_cpu": torch.equal(
+                      a.cpu(), segsum_cuda.segment_sum_plain(vals.cpu(), cpu_plan)),
+                  "within_rounding_of_float64": over <= 0,
+                  "one_launch_a_sum": launches == 2,
+                  "library_close": torch.allclose(library(), a, rtol=1e-4, atol=1e-3)}
+        ok &= all(checks.values())
+        recs[name] = {"rows": vals.shape[0], "width": D, "segments": S, "kept_rows": kept,
+                      "checks": checks, "max_abs_err": err.max().item(),
+                      "ms": statistics.median(rounds["ms"]),
+                      "plain_ms": cuda_time(lambda: segsum_cuda.segment_sum_plain(vals, plan), 3),
+                      "host_call_ms": cuda_time(lambda: plan.sum(vals), 20),
+                      "library_ms": statistics.median(rounds["library_ms"]),
+                      "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "rounds": rounds}
+    emit({"phase": "3-segsum", "cases": recs, "ok": ok})
+    if not ok:
+        raise SystemExit("phase 3-segsum: the segment-sum kernel failed its checks")
+    return recs
+
+
 def phase4(smi):
     """The main path, each frame prefetched one frame ahead
     (``SLAM.prefetch``); returns the launch counts, the corr kernel's inputs
@@ -855,7 +984,7 @@ def phase4(smi):
     import numpy as np
     import torch
     from cdvslam_tpu_torch.config import get_cfg
-    from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
+    from cdvslam_tpu_torch.ops import corr_cuda, flash_attn, segsum_cuda
     from cdvslam_tpu_torch.slam import SLAM
     from cdvslam_tpu_torch.utils import trace
     ht, wd, WARM, WIN, BLOCK, BLOCKS = 480, 752, 60, 100, 20, 20
@@ -877,6 +1006,7 @@ def phase4(smi):
 
     corr_cuda.LAUNCHES.reset()
     flash_attn.LAUNCHES.reset()
+    segsum_cuda.LAUNCHES.reset()
     slam = SLAM(cfg, network="cdv", ht=ht, wd=wd, seed=0)
     # the last warm-up frame's replay (pg.counter is past it when it runs)
     check = ReplayCheck(pick=lambda s: s.pg.counter == WARM)
@@ -886,6 +1016,7 @@ def phase4(smi):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t_start
     upd0, corr0, attn0 = slam.stats["updates"], corr_cuda.LAUNCHES.count, flash_attn.LAUNCHES.count
+    sum0 = segsum_cuda.LAUNCHES.count
     t0 = time.perf_counter()
     run(range(WARM, WARM + WIN))
     torch.cuda.synchronize()
@@ -893,6 +1024,7 @@ def phase4(smi):
     win_updates = slam.stats["updates"] - upd0
     win_corr = corr_cuda.LAUNCHES.count - corr0
     win_attn = flash_attn.LAUNCHES.count - attn0
+    win_sums = segsum_cuda.LAUNCHES.count - sum0
     edges = slam.pg.E
     block_s = {False: [], True: []}
     blocks_ns = time.perf_counter_ns()
@@ -911,7 +1043,8 @@ def phase4(smi):
     graphs = check.summary(slam)
     poses, tstamps = slam.terminate()
     torch.cuda.synchronize()
-    counts = {"corr": corr_cuda.LAUNCHES.count, "dino_flash_attn": flash_attn.LAUNCHES.count}
+    counts = {"corr": corr_cuda.LAUNCHES.count, "dino_flash_attn": flash_attn.LAUNCHES.count,
+              "segsum": segsum_cuda.LAUNCHES.count}
     frames_run = WARM + WIN + BLOCK * BLOCKS
     q1, med, q3 = statistics.quantiles(block_s[False], n=4)
     prefetch_ratio = statistics.median(block_s[True]) / med
@@ -933,6 +1066,10 @@ def phase4(smi):
         "poses_finite": bool(np.isfinite(poses).all()),
         "corr_1_per_update": counts["corr"] == slam.stats["updates"] and win_corr == win_updates,
         "attn_12_per_frame": counts["dino_flash_attn"] == 12 * frames_run and win_attn == 12 * WIN,
+        # the BA's 3 sums of rows an iteration (its 1-D sums stay with
+        # torch.segment_reduce) and SoftAgg's 2
+        "segsum_8_per_update": (counts["segsum"] == 8 * slam.stats["updates"]
+                                == slam.stats["segsum_launches"] and win_sums == 8 * WIN),
         "one_update_per_frame": win_updates == WIN,
         "one_replay_per_steady_frame": graphs["replays"] == frames_run - 8,
         "replays_bitwise_equal_eager": graphs["checked_keys"] > 0 and graphs["bitwise"],
@@ -2603,6 +2740,7 @@ def main():
     attn_rec = phase2()
     train_rec = phase2_train()
     phase3()
+    segsum_rec = phase3_segsum()
     counts, captured, fps_main, graphs_main = phase4(smi)
     f32_counts = phase4_f32(smi)
     main_rec = corr_on_captured(5, captured)
@@ -2694,6 +2832,26 @@ def main():
          "train_shape_bf16_lse": train_rec["times"]["fwd_bf16"],
          "max_abs_err_lse": train_rec["max_abs_err"]["bf16_lse"]},
     ]
+    ba, agg = segsum_rec["ba_plan_b"], segsum_rec["softagg"]
+    kernels.append(
+        {"name": "segsum", "route": "cuda", "source": "cdvslam_tpu_torch/csrc/segsum.cu",
+         "replaces": "no TPU kernel: the gather and torch.segment_reduce of SegmentPlan.sum "
+                     "(jax.ops.segment_sum in the JAX package)",
+         "launches": counts["segsum"], "max_abs_err": ba["max_abs_err"], "ms": ba["ms"],
+         "plain_ms": ba["plain_ms"], "bound_ms": ba["bound_ms"], "bound_by": "bytes",
+         "library_ms": ba["library_ms"],
+         "per": "one sum: the BA's plan_b, 40,960 rows of 6 x 6 float32 in 256 segments; ms and "
+                "library_ms (the gather and torch.segment_reduce, which is the plain version too) "
+                "are device times, medians of 5 alternating rounds of 20 calls replayed from a "
+                "CUDA graph; plain_ms: segment_sum_plain called eagerly; host_call_ms: an eager "
+                "call of the kernel",
+         "host_call_ms": ba["host_call_ms"], "host_call_ms_softagg": agg["host_call_ms"],
+         "launches_counting": counting, "launches_per_update": 8, "rounds": ba["rounds"],
+         "bytes": ba["bytes"], "ms_softagg": agg["ms"], "plain_ms_softagg": agg["plain_ms"],
+         "library_ms_softagg": agg["library_ms"], "bound_ms_softagg": agg["bound_ms"],
+         "max_abs_err_softagg": agg["max_abs_err"], "rounds_softagg": agg["rounds"],
+         "by_sum": {k: {key: r[key] for key in ("ms", "bound_ms", "library_ms")}
+                    for k, r in segsum_rec.items()}})
     t, runs = train_rec["times"], train["runs"]
     per = ("one call at the sparse training shape, packed qkv (15, 1611, 1152); ms, "
            "plain_ms and library_ms from phase 2-train; launches: phase 9's {} run ({})")

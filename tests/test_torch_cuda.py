@@ -33,7 +33,11 @@ and gradient on the card held to a float64 CPU run of the port: loss 1e-4
 relative, each gradient leaf within 3x its own float32 noise plus 1e-3
 (cuDNN, cuBLAS and the card's scatter-adds sum in other orders and the
 damped BA solves amplify it); the segment sums' backward on the card
-exactly (a gather); the Sim3 PGO at n = 200 on the card against the CPU,
+exactly (a gather); the segment-sum kernel bitwise equal to its plain
+version on the CPU (the same order of summation) and, on rows of more
+than one element, to ``SegmentPlan.sum`` on the card, which runs it,
+within the worst-case rounding of its dtype of a float64 sum, and bitwise
+repeatable, in and out of a CUDA graph; the Sim3 PGO at n = 200 on the card against the CPU,
 both solving in float64, 1e-6 per component; the classical backend's
 worker thread (its own stream) against the same close_loop inline, poses
 and depths 1e-6; the data-parallel dry run on the card by its own rule
@@ -54,6 +58,7 @@ from cdvslam_tpu_torch.models.heads import DepthHeadFlatten, SegHeadFlatten
 from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
 from cdvslam_tpu_torch.ops.corr import corr_pyramid_plain
 from cdvslam_tpu_torch.slam import SLAM
+from segsum_cases import float64_sum, torch_case
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
@@ -474,6 +479,75 @@ def test_segment_sums_backward_on_the_card(card):
     want = torch.where(((ids >= 0) & (ids < 4))[:, None, None], up[ids.clamp(0, 3)],
                        torch.zeros((), device=card))
     assert torch.equal(vals.grad, want)
+
+
+# (n, row shape, segments, dtype, ids): the BA's plans (plan_v, plan_b,
+# plan_k, plan_e and a 36-wide sum), SoftAgg's sums (agg_kk, agg_ij), the
+# PGO's float64 blocks at n = 200, zero rows; "long" segments span hundreds
+# of chunks, "spread" ids hold dropped, out-of-range and empty segments
+CARD_SEGMENT_CASES = [
+    (20480, (6,), 16, np.float32, "long"),
+    (40960, (6, 6), 256, np.float32, "ba"),
+    (10240, (), 2688, np.float32, "spread"),
+    (20480, (6,), 43008, np.float32, "spread"),
+    (40960, (36,), 256, np.float32, "long"),
+    (10240, (384,), 2688, np.float32, "spread"),
+    (10240, (384,), 10240, np.float32, "spread"),
+    (1000, (7, 7), 40000, np.float64, "spread"),
+    (500, (7,), 200, np.float64, "long"),
+    (0, (6,), 16, np.float32, "spread"),
+]
+
+
+@pytest.mark.parametrize("n, shape, S, dtype, ids", CARD_SEGMENT_CASES)
+def test_segment_sum_kernel_on_the_card(card, n, shape, S, dtype, ids):
+    """One launch a call; the plain version's bits (its serial order) on
+    the CPU and, on rows of more than one element, ``SegmentPlan.sum``'s
+    on the card, one launch too; 1-D rows it leaves to
+    torch.segment_reduce (CUB's tree), with no launch."""
+    from cdvslam_tpu_torch.ops import segsum_cuda
+    from cdvslam_tpu_torch.ops.scatter import SegmentPlan
+    seg, vals, ids_t, vals_t = torch_case(n, shape, S, dtype, ids, seed=n + S, device=card)
+    plan = SegmentPlan(ids_t, S)
+    before = segsum_cuda.LAUNCHES.count
+    a, b = segsum_cuda.segment_sum(vals_t, plan), segsum_cuda.segment_sum(vals_t, plan)
+    torch.cuda.synchronize()
+    assert segsum_cuda.LAUNCHES.count - before == 2
+    assert torch.equal(a, b) and a.dtype == vals_t.dtype and a.shape == (S, *shape)
+    plain = SegmentPlan(torch.from_numpy(seg), S).sum(torch.from_numpy(vals))
+    assert torch.equal(a.cpu(), plain)
+    if len(shape):
+        assert torch.equal(plan.sum(vals_t), a)
+    else:
+        plan.sum(vals_t)
+    assert segsum_cuda.LAUNCHES.count - before == 2 + (len(shape) > 0)
+    ref, bound = float64_sum(seg, vals, S)
+    assert np.all(np.abs(a.cpu().numpy() - ref) <= bound)
+
+
+def test_segment_sum_kernel_in_a_graph_replay(card):
+    """Plan and sum captured together, as in the steady frame: one launch
+    counted at the capture, each replay bitwise equal to the eager call,
+    on the captured buffers' new values too."""
+    from cdvslam_tpu_torch.ops import segsum_cuda
+    from cdvslam_tpu_torch.ops.scatter import SegmentPlan
+    _, _, ids_t, vals_t = torch_case(40960, (6, 6), 256, np.float32, "ba", 3, device=card)
+    ids_in, vals_in = ids_t.clone(), vals_t.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        SegmentPlan(ids_in, 256).sum(vals_in)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = segsum_cuda.LAUNCHES.count
+    with torch.cuda.graph(graph):
+        out = SegmentPlan(ids_in, 256).sum(vals_in)
+    assert segsum_cuda.LAUNCHES.count - before == 1
+    for scale in (1.0, 1.0, -3.0):
+        vals_in.copy_(vals_t * scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, SegmentPlan(ids_t, 256).sum(vals_t * scale)), scale
 
 
 def _pgo_ring(n=200, seed=0, noise=0.01):

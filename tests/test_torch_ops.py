@@ -1,7 +1,7 @@
 """Port ops and kernel wrappers against the JAX package, on the CPU.
 
-On CPU tensors the kernel wrappers (``ops.corr_cuda``, ``ops.flash_attn``)
-run their plain PyTorch versions and launch nothing; the kernels
+On CPU tensors the kernel wrappers (``ops.corr_cuda``, ``ops.flash_attn``,
+``ops.segsum_cuda``) run their plain PyTorch versions and launch nothing; the kernels
 themselves are held to the same plain versions on the card by
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 """
@@ -17,8 +17,9 @@ from cdvslam_tpu.ops.patchify import patchify as jpatchify
 from cdvslam_tpu.ops.scatter import neighbors_np as jneighbors
 from cdvslam_tpu.slam.kernels import corr_features as jcorr_features
 from cdvslam_tpu_torch.ops import SegmentPlan, corr, corr_cl_plain, neighbors_np, patchify
-from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
+from cdvslam_tpu_torch.ops import corr_cuda, flash_attn, segsum_cuda
 from cdvslam_tpu_torch.slam.kernels import corr_features
+from segsum_cases import float64_sum, torch_case
 
 torch.set_num_threads(2)
 
@@ -137,18 +138,46 @@ def test_attention_qkv_plain_matches_jax_attention(B, L, C, h):
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
 
 
-def test_segment_sum_is_exact_and_repeatable():
-    rng = np.random.default_rng(4)
-    vals = torch.from_numpy(rng.standard_normal((500, 3)).astype(np.float32))
-    ids = torch.from_numpy(rng.integers(-2, 40, 500))
-    a = SegmentPlan(ids, 37).sum(vals)
-    b = SegmentPlan(ids, 37).sum(vals)
-    assert torch.equal(a, b)
-    ref = np.zeros((37, 3), np.float64)
-    for v, i in zip(vals.numpy().astype(np.float64), ids.numpy()):
-        if 0 <= i < 37:
-            ref[i] += v
-    np.testing.assert_allclose(a.numpy(), ref, atol=1e-5)
+# (n, row shape, segments, dtype, ids, seed, atol): the first case is the
+# original; then the BA's widths (1, 6, 36) at its segment counts, SoftAgg's
+# rows (384), the PGO's float64 blocks (7 x 7 and 7), zero rows, and
+# segments of thousands of rows
+SEGMENT_CASES = [
+    (500, (3,), 37, np.float32, "spread", 4, 1e-5),
+    (4096, (), 2688, np.float32, "spread", 1, None),
+    (20480, (6,), 16, np.float32, "long", 2, None),
+    (40960, (6, 6), 256, np.float32, "ba", 3, None),
+    (10240, (36,), 256, np.float32, "long", 4, None),
+    (19200, (6,), 43008, np.float32, "spread", 5, None),
+    (2048, (384,), 2688, np.float32, "spread", 6, None),
+    (800, (7, 7), 400, np.float64, "spread", 7, None),
+    (400, (7,), 200, np.float64, "long", 8, None),
+    (0, (6,), 16, np.float32, "spread", 9, None),
+]
+
+
+@pytest.mark.parametrize("n, shape, S, dtype, ids, seed, atol", SEGMENT_CASES)
+def test_segment_sum_is_exact_and_repeatable(n, shape, S, dtype, ids, seed, atol):
+    """On CPU tensors ``SegmentPlan.sum`` runs the plain version
+    (torch.segment_reduce, the kernel's order of summation), launches
+    nothing, repeats bitwise, and is within the worst-case rounding of a
+    float64 sum; the kernel's wrapper refuses CPU tensors; the plan's
+    offsets are the exclusive running sum of the run lengths."""
+    seg, vals, ids_t, vals_t = torch_case(n, shape, S, dtype, ids, seed)
+    plan = SegmentPlan(ids_t, S)
+    kept = np.where((seg >= 0) & (seg < S), seg, S)
+    counts = np.bincount(kept, minlength=S + 1)
+    np.testing.assert_array_equal(plan.offsets.numpy(), np.cumsum(counts) - counts)
+    ref, bound = float64_sum(seg, vals, S)
+    tol = bound if atol is None else np.minimum(bound, atol)
+    before = segsum_cuda.LAUNCHES.count
+    for total in (SegmentPlan(ids_t, S).sum, plan.sum):
+        a, b = total(vals_t), total(vals_t)
+        assert torch.equal(a, b) and a.dtype == vals_t.dtype and a.shape == (S, *shape)
+        assert np.all(np.abs(a.numpy() - ref) <= tol)
+    assert segsum_cuda.LAUNCHES.count == before
+    with pytest.raises(ValueError):
+        segsum_cuda.segment_sum(vals_t, plan)
 
 
 def test_neighbors_np_matches_jax():
