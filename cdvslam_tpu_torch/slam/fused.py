@@ -5,7 +5,9 @@ runtime's one-dispatch frame: ``cdvslam_tpu/slam/runtime.py``
 In the JAX package every initialized frame is one dispatch of one compiled
 program over padded, static shapes: the deferred keyframe shift, the frame
 insert and the update, with the state buffers donated and every per-frame
-value a traced argument. Here that program is ``fused_body``, and its
+value a traced argument (then, with a depth head, the scale adjustment as a
+compiled call of its own). Here that program is ``fused_body``, with the
+scale adjustment as its last stage, and its
 compiled form is a ``torch.cuda.CUDAGraph`` captured once per static key
 (``FusedKey``: the padded edge count, the patch window, the BA iterations,
 the shift span, the network and its type), into one shared memory pool,
@@ -33,9 +35,13 @@ graph like the others and count under their own counter
 Device stamps: ``fused_body`` stamps its start, the end of the keyframe
 shift and, through ``SLAM._insert_frame`` and ``kernels.update_body``, the
 end of the networks, of the frame's writes and of the update operator,
-then its end, which moves the tracer's ring to its next row. Captured,
-they replay with the graph; the warm-up stamps nothing. After each replay
-``FusedStep`` names the row for the tracer (``row_done``).
+then its end, which moves the tracer's ring to its next row. With heads it
+also stamps each side of SCORE's selection, of the chosen patches' seg
+class and of the depth head's part, and the start of the scale
+adjustment (``utils.trace.row_stages``). Captured, they replay with the
+graph; the warm-up stamps nothing. After each replay ``FusedStep`` names
+the row and its stages for the tracer (``row_done``). The heads' device
+tallies (``SLAM._count``) replay with the graph in the same way.
 """
 from __future__ import annotations
 
@@ -68,9 +74,11 @@ class FrameInputs(NamedTuple):
 
 def fused_body(slam, st, inp: FrameInputs, key: FusedKey):
     """The steady-state step of ``slam`` on the state dict ``st``: the
-    deferred keyframe shift (when ``key.shift_span``), the frame insert and
-    one update. Returns (mm, dP): the keyframe motion magnitudes (2,) and
-    the removed frame's relative pose, or None."""
+    deferred keyframe shift (when ``key.shift_span``), the frame insert, one
+    update and, with a depth head and no global BA to follow (``key.
+    iterations``), the scale adjustment over frames [t0, n + 1) of the
+    step's scalars. Returns (mm, dP): the keyframe motion magnitudes (2,)
+    and the removed frame's relative pose, or None."""
     stamp = slam._stamp
     stamp(0)
     dP = None
@@ -80,6 +88,10 @@ def fused_body(slam, st, inp: FrameInputs, key: FusedKey):
     stamp(1)
     slam._insert_frame(st, inp, True)
     mm = slam._update_step(st, inp, key)
+    if key.iterations and slam.depth_head is not None:
+        stamp(14)
+        tail = inp.ints[len(inp.ints) - len(SCALARS):].long()
+        slam._adjust_scale(st, tail[SCALARS.index("t0")], tail[SCALARS.index("n")] + 1)
     stamp(5, advance=True)
     return mm, dP
 
@@ -127,7 +139,8 @@ class FusedStep:
             self.replay(g)
             out = g.outputs
         slam.trace.row_done("replay", slam.pg.counter - 1, steady=self.captures == captures,
-                            prefetched=slam._prefetched_frame, launch_ns=launched)
+                            prefetched=slam._prefetched_frame, launch_ns=launched,
+                            stages=slam._row_stages("replay", key))
         return out
 
     @staticmethod

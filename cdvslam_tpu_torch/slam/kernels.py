@@ -189,7 +189,7 @@ def dynamic_class_weight(seg, filt_index, kk):
     return torch.stack([mul, mul], -1)
 
 
-def scale_adjustment(poses, patches, scale, t0: int, n: int, w: float, M: int):
+def scale_adjustment(poses, patches, scale, t0, n, w: float, M: int, window=None):
     """Pull the window's scale toward the depth head's anchor, in place.
 
     Over frames [t0, n): rate = 1 + w (anchor / s - 1), with s the mean
@@ -200,18 +200,34 @@ def scale_adjustment(poses, patches, scale, t0: int, n: int, w: float, M: int):
     (1 - 1/rate). The window's poses are rebuilt from their inverses even
     when the gate is shut, as the JAX package does. Returns (poses,
     patches, rate) with rate a 0-d tensor, never read on the host here.
+
+    ``t0`` and ``n`` are ints or 0-d integer tensors on the device (inside
+    a CUDA graph). The frames are read and written through a static window
+    of ``window`` rows ending at n (n - t0 at most ``window``; None: n - t0,
+    ints only), rows before t0 masked, so that nothing is read back.
     """
-    P = patches.shape[-1]
-    angle = torch.linalg.norm(se3_log(se3_mul(poses[max(n - 2, 0)],
-                                              se3_inv(poses[max(n - 1, 0)])))[3:])
-    win = patches[t0 * M:n * M]
-    s = win[:, 2, P // 2, P // 2].sum() / max(win.shape[0], 1)
-    anchor = scale[t0:n].sum() / max(n - t0, 1)
+    P, dev = patches.shape[-1], poses.device
+    W = window if window is not None else n - t0
+    t0, n = (torch.as_tensor(v, device=dev) for v in (t0, n))
+    rows = (n - W).clamp(min=0) + torch.arange(W, device=dev)
+    live = (rows >= t0) & (rows < n)
+    pair = poses.index_select(0, torch.stack([n - 2, n - 1, t0 - 1]).clamp(min=0))
+    angle = torch.linalg.norm(se3_log(se3_mul(pair[0], se3_inv(pair[1])))[3:])
+    prows = (rows[:, None] * M + torch.arange(M, device=dev)).reshape(-1)
+    plive = live[:, None].expand(W, M).reshape(-1)
+    win = patches.index_select(0, prows)
+    d = torch.where(plive, win[:, 2, P // 2, P // 2], torch.zeros_like(win[:, 0, 0, 0]))
+    s = d.sum() / ((n - t0) * M).clamp(min=1)
+    a = torch.where(live, scale.index_select(0, rows), torch.zeros_like(rows, dtype=scale.dtype))
+    anchor = a.sum() / (n - t0).clamp(min=1)
     rate = 1.0 + w * (anchor / s.clamp(min=1e-8) - 1.0)
     rate = torch.where(angle < 0.04, torch.ones_like(rate), rate)
-    win[:, 2] *= rate
-    inv = se3_inv(poses[t0:n])
-    c_anchor = se3_inv(poses[max(t0 - 1, 0)])[:3]
+    win[:, 2] = torch.where(plive[:, None, None], win[:, 2] * rate, win[:, 2])
+    patches.index_copy_(0, prows, win)
+    old = poses.index_select(0, rows)
+    inv = se3_inv(old)
+    c_anchor = se3_inv(pair[2])[:3]
     xyz = inv[:, :3] + (1.0 - 1.0 / rate) * (c_anchor - inv[:, :3])
-    poses[t0:n] = se3_inv(torch.cat([xyz, inv[:, 3:]], -1))
+    new = se3_inv(torch.cat([xyz, inv[:, 3:]], -1))
+    poses.index_copy_(0, rows, torch.where(live[:, None], new, old))
     return poses, patches, rate

@@ -87,6 +87,13 @@ from .kernels import (
 )
 from .state import PatchGraph
 
+# the heads' counters in ``SLAM.stats`` (a SLAM with a seg or depth head):
+# SCORE's tokens and those of a dynamic class, the real edges the
+# dynamic-class filter weighed and those it down-weighted, the scale
+# adjustments and those whose rotation gate opened (rate not 1)
+HEAD_COUNTERS = ("tokens", "dynamic_tokens", "edges", "edges_downweighted", "scale_calls",
+                 "scale_gate_open")
+
 
 def _unsupported(cfg, network):
     if network not in ("cdv", "dpv"):
@@ -225,6 +232,8 @@ class SLAM:
                       "global_ba": 0, "lc_attempts": 0, "lc_applied": 0,
                       "prep_cache_hits": 0, "prep_cache_misses": 0,
                       "shifts_deferred": 0, "shifts_eager": 0, "segsum_launches": 0}
+        if self._tally is not None:
+            self.stats.update(dict.fromkeys(HEAD_COUNTERS, 0))
         if self.trace.on:
             self.trace.stats = self.stats
         self._kf_queue = []   # lagged keyframe decisions (frame id, mm)
@@ -259,7 +268,7 @@ class SLAM:
         gives about a fifth of the tokens a dynamic class on the random
         network's tokens at 480 x 752; seed 11 gives none."""
         cfg = self.cfg
-        self.seg_head = self.depth_head = self.filt_index = None
+        self.seg_head = self.depth_head = self.filt_index = self._tally = None
         self.depth_is_dpt = _head_set(cfg.DEPTH_HEAD) and "dpt" in cfg.DEPTH_HEAD
         if self.network == "dpv":
             # the JAX package sets the heads up for CDV only and ignores them here
@@ -288,6 +297,10 @@ class SLAM:
             self.filt_index = torch.tensor(ADE20K_INDEX_FILT, device=self.device)
         if self.depth_head is not None:
             self.scale_factor = self.depth_head.max_depth / 4.0
+        if heads:
+            # HEAD_COUNTERS as device tallies: added to inside the step (a
+            # replay adds them again), read at terminate()
+            self._tally = torch.zeros(len(HEAD_COUNTERS), dtype=torch.int64, device=self.device)
 
     # ------------------------------------------------------------------
     def _score_noise(self, counter):
@@ -333,21 +346,28 @@ class SLAM:
         coords = cand
         if cfg.CENTROID_SEL_STRAT == "SCORE":
             # seg-filtered selection: static interior tokens score 1
+            self._stamp(8)
             dyn = self.seg_head.filt_mask(tokens[0].to(gd), self.filt_index)
+            self._count("tokens", dyn.numel())
+            self._count("dynamic_tokens", dyn.sum())
             coords, score_row = select_score(noise.reshape(1, hi * wi),
                                              seg_binary_score(dyn, 1, hi, wi), M, 4.0 / 14.0,
                                              upperleft)
             _put(st["score_"], n * M + torch.arange(M, device=dev), score_row)
+            self._stamp(9)
         coords = coords.reshape(1, M, 2)
         ictx = patchify(tmap, (4.0 / 14.0) * coords, 0,
                         mode="upperleft" if upperleft else "bilinear")[..., 0, 0]
         ictx = self.model.adapt(ictx)
         if self.seg_head is not None:
+            self._stamp(10)
             _put(st["seg_"], n.reshape(1), self.seg_head.seg_class((ictx[0] * 4.0).to(gd))[None])
+            self._stamp(11)
         gmap = patchify(fmap, coords, P // 2, mode="bilinear")
         clr = patchify(image_f32.permute(0, 3, 1, 2), 4 * (coords + 0.5), 0,
                        mode="bilinear")[..., 0, 0]
         if self.depth_head is not None:
+            self._stamp(12)
             if self.depth_is_dpt:
                 dm = self.depth_head([(t.to(gd), c.to(gd)) for t, c in taps])[:, 0]
             else:
@@ -360,6 +380,8 @@ class SLAM:
             disps = torch.ones((1, hf, wf), dtype=gd, device=dev)
         grid = coords_grid_with_index(disps[None])[0]
         patch_row = patchify(grid, coords, P // 2, mode="bilinear")[0]
+        if self.depth_head is not None:
+            self._stamp(13)
         return fmap, ictx, gmap, patch_row, clr
 
     def _patches_dpv(self, img, cand):
@@ -614,6 +636,8 @@ class SLAM:
         if self.cfg.FILTER_DYNAMIC_CLASS and self.seg_head is not None:
             weight_mul = dynamic_class_weight(st["seg_"], self.filt_index,
                                               idx.kk_local + s["k0"])
+            self._count("edges", idx.aux.mask.sum())
+            self._count("edges_downweighted", ((weight_mul[:, 0] < 1) & idx.aux.mask).sum())
         if self.network == "cdv" and self.cfg.CENTROID_SEL_STRAT == "SCORE":
             score_win = st["score_"].index_select(0, win)
         poses, patches_win, net, target, weight, _, mm = update_body(
@@ -633,6 +657,30 @@ class SLAM:
         if not self.fused.off_path:
             self.trace.stamp(slot, advance)
 
+    def _count(self, name, value):
+        """Add ``value`` (an int or a 0-d device tensor) to the heads'
+        device tally ``name`` (``HEAD_COUNTERS``), except off the path."""
+        if not self.fused.off_path:
+            self._tally[HEAD_COUNTERS.index(name)].add_(value)
+
+    def _row_stages(self, kind, key=None):
+        """The device stages of a row of ``kind`` (``utils.trace.
+        row_stages``): the heads' where this SLAM runs them, the scale
+        adjustment in a replay whose key runs no global BA after it."""
+        return tracing.row_stages(
+            kind, select=self.cfg.CENTROID_SEL_STRAT == "SCORE" and self.seg_head is not None,
+            seg=self.seg_head is not None, depth=self.depth_head is not None,
+            scale=self.depth_head is not None and key is not None and key.iterations > 0)
+
+    def _adjust_scale(self, st, t0, n):
+        """The depth head's scale adjustment over frames [t0, n) of the
+        state dict ``st`` (``kernels.scale_adjustment``, its window the
+        OPTIMIZATION_WINDOW frames an update's t0 leaves), counted."""
+        _, _, rate = scale_adjustment(st["poses_"], st["patches_"], st["scale_"], t0, n, 0.2,
+                                      self.M, self.cfg.OPTIMIZATION_WINDOW)
+        self._count("scale_calls", 1)
+        self._count("scale_gate_open", rate != 1)
+
     def _key(self, E_pad, KWIN, iterations, shift_span=0):
         return FusedKey(E_pad, KWIN, iterations, shift_span, self.network, self.fdtype)
 
@@ -643,16 +691,17 @@ class SLAM:
         return (bool((pg.ii < pg.n - self.cfg.REMOVAL_WINDOW - 1).any())
                 and pg.n not in self.ran_global_ba)
 
-    def _after_update(self, t0, long_range):
+    def _after_update(self, t0, long_range, scaled=False):
         """The edges now hold the update's state; then the global BA (long
-        range) or, with a depth head, the scale adjustment, eagerly."""
+        range) or, with a depth head, the scale adjustment, eagerly (unless
+        ``scaled``: the steady step ran it)."""
         pg = self.pg
         pg.net_src = np.arange(pg.E)
         pg.weights_current = True
         if long_range:
             self._run_global_ba()
-        elif self.depth_head is not None:
-            scale_adjustment(pg.poses_, pg.patches_, pg.scale_, t0, pg.n, 0.2, self.M)
+        elif self.depth_head is not None and not scaled:
+            self._adjust_scale(pg.state(), t0, pg.n)
 
     def update(self):
         """One eager update of the active edges (the initialization's and
@@ -684,9 +733,9 @@ class SLAM:
     def _fused_frame_update(self, image, n_row, fac, intrinsics, counter):
         """The steady-state step of frame row n_row (edges already
         appended): the deferred keyframe shift, the frame insert and the
-        update as ``fused.fused_body``, in one CUDA graph replay on the card
-        (``fused.FusedStep``); then, eagerly, the global BA or the scale
-        adjustment. Returns mm."""
+        update (and, with a depth head and no global BA to follow, the scale
+        adjustment) as ``fused.fused_body``, in one CUDA graph replay on the
+        card (``fused.FusedStep``); then, eagerly, the global BA. Returns mm."""
         cfg, pg, tr = self.cfg, self.pg, self.trace
         with tr.span("prepare"):
             self.stats["updates"] += 1
@@ -717,7 +766,7 @@ class SLAM:
         with tr.span("after"):
             if span:
                 pg.delta[t1] = (t0d, dP.clone())
-            self._after_update(t0, long_range)
+            self._after_update(t0, long_range, scaled=True)
             return self._keep_mm(mm, counter)
 
     def _keep_mm(self, mm, frame):
@@ -903,7 +952,8 @@ class SLAM:
             self._stamp(0)
             self._insert_frame(pg.state(), inp, False)
             self._stamp(5, advance=True)
-            tr.row_done("insert", pg.counter, prefetched=self._prefetched_frame)
+            tr.row_done("insert", pg.counter, prefetched=self._prefetched_frame,
+                        stages=self._row_stages("insert"))
         pg.counter += 1
         if n > 0 and cfg.MOTION_PROBE_THR >= 0:
             with tr.span("probe"):
@@ -1019,6 +1069,8 @@ class SLAM:
             return traj[t]
 
         poses = torch.stack([get_pose(t) for t in range(pg.counter)])
+        if self._tally is not None:
+            self.stats.update(zip(HEAD_COUNTERS, self._tally.tolist()))
         c = pg.colors_dev.cpu().numpy()
         pg.colors_[:] = np.clip((c[:, :, [2, 1, 0]] + 0.5) * (255.0 / 2), 0, 255).astype(np.uint8)
         if self.viewer is not None:

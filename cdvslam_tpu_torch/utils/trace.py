@@ -41,14 +41,20 @@ upload writes slots 6 and 7 before and after it. The stages of a replay
 are ``shift`` 0-1, ``features`` 1-2, ``patches`` 2-3, ``update`` 3-4,
 ``ba`` 4-5 and ``upload`` 6-7. An eager insert before the initialisation
 stamps 0, 2, 3, 5 (``features`` 0-2, ``patches`` 2-3) and an eager update
-0, 4, 5 (``update`` 0-4, ``ba`` 4-5). The caller names each row it
-completes (``row_done``); a row whose sequence number is not the one the
-host expects (a stamp ran that no ``row_done`` named) is dropped and
-counted in ``lost_rows``. Every DRAIN_EVERY rows the ring is copied into
-pinned host memory without waiting, behind the work on the stream; a copy
-is read once its event has passed (``collect``, at points where the host
-has already waited for later work) and at ``terminate()`` (``flush``). A
-row overwritten before it was read counts in ``lost_rows``. On the CPU
+0, 4, 5 (``update`` 0-4, ``ba`` 4-5). A SLAM with heads stamps more
+(``row_stages``): SCORE's selection 8-9 and the chosen patches' seg class
+10-11 (together ``select``), the depth head's map, its resize and the new
+patches' inverse depths 12-13 (``depth``), all inside ``features``; and in
+a replay that runs the scale adjustment, its start 14: ``ba`` is then 4-14
+and ``scale`` 14-5. The caller names each row it completes and, where
+they are not its kind's, its stages (``row_done``); a row whose sequence
+number is not the one the host expects (a stamp ran that no ``row_done``
+named) is dropped and counted in ``lost_rows``. Every DRAIN_EVERY rows the
+ring is copied into pinned host memory without waiting, behind the work on
+the stream; a copy is read once its event has passed (``collect``, at
+points where the host has already waited for later work) and at
+``terminate()`` (``flush``). A row overwritten before it was read counts
+in ``lost_rows``. On the CPU
 the stamps write the host clock into a host ring at once.
 
 One clock. At construction the device timer's offset from the host clock
@@ -76,6 +82,7 @@ captured graphs hold no stamp node.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import statistics
 import threading
@@ -90,7 +97,7 @@ KEEP_ENDED = 64          # records kept after their SLAM reached terminate()
 RING_SPANS = 16384       # raw spans kept, process-wide
 RING_ROWS = 4096         # raw device rows kept, process-wide
 RING_DEVICE = 64         # rows of a record's device ring
-SLOTS = 9                # a row: 8 stamps, then its sequence number
+SLOTS = 16               # a row: 15 stamps, then its sequence number
 DRAIN_EVERY = 4          # rows between two copies of the device ring
 CLOCK_TRIALS = 20
 
@@ -102,6 +109,25 @@ KINDS = {
     "insert": ((0, 2, 3, 5, 6, 7), (("features", 0, 2), ("patches", 2, 3), ("upload", 6, 7))),
     "update": ((0, 4, 5), (("update", 0, 4), ("ba", 4, 5))),
 }
+
+
+@functools.lru_cache(maxsize=None)
+def row_stages(kind, select=False, seg=False, depth=False, scale=False):
+    """The stages of a row of ``kind`` with the heads' stamps: SCORE's
+    selection (``select``) and the seg class (``seg``), both counted as
+    stage ``select``, the depth head (``depth``) and, in a replay, the scale
+    adjustment after the BA (``scale``); None where there are none (the
+    kind's own stages)."""
+    if not (select or seg or depth or scale):
+        return None
+    stages = list(KINDS[kind][1])
+    if scale:
+        stages[stages.index(("ba", 4, 5))] = ("ba", 4, 14)
+        stages.append(("scale", 14, 5))
+    stages += [s for on, s in ((select, ("select", 8, 9)), (seg, ("select", 10, 11)),
+                               (depth, ("depth", 12, 13))) if on]
+    return tuple(stages)
+
 
 _now = time.perf_counter_ns
 _local = threading.local()
@@ -133,7 +159,7 @@ class Row(NamedTuple):
     prefetched: Optional[bool]  # the frame's upload was prefetched (None: no upload)
     start_ns: int               # first and last compute stamp (slots 0 and 5)
     end_ns: int
-    stages: dict                # stage name -> ns
+    stages: dict                # stage name -> ns (a name's intervals summed)
 
 
 class Span:
@@ -261,11 +287,13 @@ class Record:
         if self._dev is not None:
             self._dev.stamp(slot, advance)
 
-    def row_done(self, kind, frame=None, steady=False, prefetched=None, launch_ns=None):
+    def row_done(self, kind, frame=None, steady=False, prefetched=None, launch_ns=None,
+                 stages=None):
         """The row the last advancing stamp completed is of ``kind``;
-        ``launch_ns``: the host clock just before its launch."""
+        ``launch_ns``: the host clock just before its launch; ``stages``:
+        (name, from slot, to slot) when not the kind's own (``row_stages``)."""
         if self._dev is not None:
-            self._dev.row_done(kind, frame, steady, prefetched, launch_ns)
+            self._dev.row_done(kind, frame, steady, prefetched, launch_ns, stages)
 
     def observed(self, frame):
         """The host has just waited for frame ``frame``'s replay to end."""
@@ -290,11 +318,13 @@ class Record:
         self.ended = True
 
     # -- device rows on the host clock ---------------------------------
-    def _row(self, kind, frame, steady, prefetched, t, gap):
-        """Enter one row (``t``: slot -> host ns); returns its Row.
-        ``gap``: (ns, midpoint on the host clock) since the replay before
-        it, or None."""
-        ns = {name: t[b] - t[a] for name, a, b in KINDS[kind][1]}
+    def _row(self, kind, frame, steady, prefetched, t, gap, stages):
+        """Enter one row (``t``: slot -> host ns) of ``stages``; returns its
+        Row. ``gap``: (ns, midpoint on the host clock) since the replay
+        before it, or None."""
+        ns = {}
+        for name, a, b in stages:
+            ns[name] = ns.get(name, 0) + t[b] - t[a]
         row = Row(self.id, kind, frame, steady, prefetched, t[0], t[5], ns)
         if kind == "replay" and steady:
             for name, v in ns.items():
@@ -354,7 +384,7 @@ class _Stamps:
         self.cuda = device.type == "cuda"
         self.issued = 0            # rows the stream completes (advancing stamps run)
         self.read = 0              # rows read
-        self.metas = deque()       # (kind, frame, steady, prefetched, launch) per unread row
+        self.metas = deque()       # (kind, frame, steady, prefetched, launch, stages) per unread row
         self.prev = None           # (kind, device ns of its last stamp) of the last row read
         self.offset = 0            # device ns - host ns at dev0, as tracked
         self.rate = 0.0            # the offset's change per device ns
@@ -427,12 +457,13 @@ class _Stamps:
             return
         self.stamper(slot, advance)
 
-    def row_done(self, kind, frame, steady, prefetched, launch_ns):
+    def row_done(self, kind, frame, steady, prefetched, launch_ns, stages):
         if not self.cuda:
             # read at once: the row the last advancing stamp completed
             self.read = self.issued = self.cursor - 1
         self.issued += 1
-        self.metas.append((kind, frame, steady, prefetched, launch_ns))
+        self.metas.append((kind, frame, steady, prefetched, launch_ns,
+                           stages or KINDS[kind][1]))
         if not self.cuda:
             self._read(self.ring, self.issued)
         elif self.issued - self.copied >= DRAIN_EVERY:
@@ -479,7 +510,7 @@ class _Stamps:
             self.prev = None
         rows = []
         while self.read < upto:
-            kind, frame, steady, prefetched, launch = self.metas.popleft()
+            kind, frame, steady, prefetched, launch, stages = self.metas.popleft()
             r = ring[self.read % RING_DEVICE]
             if int(r[SLOTS - 1]) != self.read:
                 rec.lost_rows += 1
@@ -489,12 +520,13 @@ class _Stamps:
             if launch is not None:
                 self._track(int(r[0]), int(r[5]), launch, self.seen.pop(frame, None))
             offset = self._offset_at(int(r[0]))
-            t = {s: int(r[s]) - offset for s in KINDS[kind][0]}
+            slots = set(KINDS[kind][0]).union(*(st[1:] for st in stages))
+            t = {s: int(r[s]) - offset for s in slots}
             gap = None
             if kind == "replay" and self.prev is not None and self.prev[0] == "replay":
                 g = int(r[0]) - self.prev[1]           # on the device's clock
                 gap = (g, t[0] - g // 2)
-            rows.append(rec._row(kind, frame, steady, prefetched, t, gap))
+            rows.append(rec._row(kind, frame, steady, prefetched, t, gap, stages))
             self.prev = (kind, int(r[5]))
             self.read += 1
         with tracer.lock:
@@ -534,7 +566,8 @@ class _Off:
     def stamp(self, slot, advance=False):
         pass
 
-    def row_done(self, kind, frame=None, steady=False, prefetched=None, launch_ns=None):
+    def row_done(self, kind, frame=None, steady=False, prefetched=None, launch_ns=None,
+                 stages=None):
         pass
 
     def observed(self, frame):

@@ -105,13 +105,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
      (SCORE selection, linear seg and depth heads, FILTER_DYNAMIC_CLASS)
      with SEG_HEAD="random", DEPTH_HEAD="random" and MOTION_PROBE_THR=-1,
      the weights and frames of phase 4, 60 warm-up frames, one 100-frame
-     timed window, terminate(); poses finite, corr launched once per update
-     and flash attention 12 times per frame, the share of tokens of a
-     dynamic class in (0, 1), a share of edges down-weighted to 1e-4 above
-     0, no zero score among the selected patches, the scale adjustment's
-     openings counted, one replay per steady-state frame and the warm-up
-     keys bitwise equal to the eager body, scale_adjustment on a crafted
-     pose pair on the card against the CPU; then 40 frames with
+     timed window, 20 frames timed and 20 profiled (the host's launch calls
+     per steady frame), terminate(); poses finite, corr launched once per
+     update and flash attention 12 times per frame, from the SLAM's own
+     counters the share of tokens of a dynamic class in (0, 1), a share of
+     edges down-weighted to 1e-4 above 0 and the scale adjustment run once
+     per update with its openings counted, no zero score among the
+     selected patches, no eager scale adjustment on a steady frame (it runs
+     inside the replay), one replay per steady-state frame and the warm-up
+     keys bitwise equal to the eager body (the scale adjustment inside),
+     scale_adjustment on a crafted pose pair on the card against the CPU;
+     then 40 frames with
      DEPTH_HEAD="dpt_random": depths and poses finite, ms per steady-state
      frame (insert and update are one replay; synchronize on each side)
   8  the DPVO path ("8-corr" first: K1 at C = 128 on the phase-1 layouts,
@@ -1535,8 +1539,9 @@ def _cdvo_pp_cfg(depth_head="random"):
 
 def _scale_adjustment_on_card():
     """scale_adjustment on a crafted window whose last two poses turn by
-    0.1 rad (the gate opens), on the card against the CPU: max abs
-    difference of poses and depths, and the rate."""
+    0.1 rad (the gate opens), on the card as the step runs it (t0 and n
+    device scalars, a static window of 10 frames) against the CPU with host
+    ints: max abs difference of poses and depths, and the rate."""
     import torch
     from cdvslam_tpu_torch.lie import se3_exp
     from cdvslam_tpu_torch.slam.kernels import scale_adjustment
@@ -1548,7 +1553,8 @@ def _scale_adjustment_on_card():
     patches = 0.2 + torch.rand((N * M, 3, 3, 3), generator=g)
     scale = 0.3 + torch.rand((N,), generator=g)
     want = scale_adjustment(poses.clone(), patches.clone(), scale, t0, n, 0.2, M)
-    got = scale_adjustment(poses.cuda(), patches.cuda(), scale.cuda(), t0, n, 0.2, M)
+    got = scale_adjustment(poses.cuda(), patches.cuda(), scale.cuda(), torch.tensor(t0).cuda(),
+                           torch.tensor(n).cuda(), 0.2, M, 10)
     torch.cuda.synchronize()
     return {"poses": (got[0].cpu() - want[0]).abs().max().item(),
             "depths": (got[1].cpu() - want[1]).abs().max().item(),
@@ -1557,41 +1563,30 @@ def _scale_adjustment_on_card():
 
 def phase7(smi):
     """The CDVO++ path at 480 x 752 and a DPT sub-run; returns the launch
-    counts of the 160-frame run and the graphs' summary. The heads' tallies
-    are device tensors added to in place: inside a captured step the adds
-    are part of the graph and run at every replay; the warm-up and the
-    replay checks' eager runs (off the path) add nothing."""
+    counts of the 200-frame run and the graphs' summary. The heads'
+    counters are the SLAM's own (``SLAM.stats``, device tallies read at
+    terminate()); the selection's tallies here are device tensors added to
+    in place in the same way: inside a captured step the adds are part of
+    the graph and run at every replay; the warm-up and the replay checks'
+    eager runs (off the path) add nothing. A call of the scale adjustment
+    that is neither captured nor off the path is an eager one."""
     import numpy as np
     import torch
     from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
     from cdvslam_tpu_torch.slam import SLAM
     from cdvslam_tpu_torch.slam import runtime
-    WARM, WIN = 60, 100
+    WARM, WIN, PROF = 60, 100, 20
     frames, intr = _frames()
     slam = SLAM(_cdvo_pp_cfg(), network="cdv", ht=480, wd=752, seed=0)
-    # device-side tallies of what the heads did; read once after the run
-    tally = {k: torch.zeros((), dtype=torch.float64, device=slam.device) for k in (
-        "tokens", "dynamic_tokens", "edges", "down_weighted", "selected", "zero_scores",
-        "adjustments", "openings")}
+    tally = {k: torch.zeros((), dtype=torch.float64, device=slam.device)
+             for k in ("selected", "zero_scores")}
+    eager_scale = []
 
     def add(key, value):
         if not slam.fused.off_path:
             tally[key] += value
 
-    filt_mask, dcw = slam.seg_head.filt_mask, runtime.dynamic_class_weight
     sel, adj = runtime.select_score, runtime.scale_adjustment
-
-    def counted_filt_mask(x, filt_index):
-        mask = filt_mask(x, filt_index)
-        add("tokens", mask.numel())
-        add("dynamic_tokens", mask.sum())
-        return mask
-
-    def counted_dcw(*args):
-        mul = dcw(*args)
-        add("edges", mul.shape[0])
-        add("down_weighted", (mul[:, 0] < 1).sum())
-        return mul
 
     def counted_select(*args):
         coords, scores = sel(*args)
@@ -1600,14 +1595,11 @@ def phase7(smi):
         return coords, scores
 
     def counted_adjust(*args):
-        poses, patches, rate = adj(*args)
-        add("adjustments", 1)
-        add("openings", rate != 1)
-        return poses, patches, rate
+        if not (slam.fused.off_path or torch.cuda.is_current_stream_capturing()):
+            eager_scale.append(slam.pg.counter)
+        return adj(*args)
 
-    slam.seg_head.filt_mask = counted_filt_mask
-    runtime.dynamic_class_weight, runtime.select_score = counted_dcw, counted_select
-    runtime.scale_adjustment = counted_adjust
+    runtime.select_score, runtime.scale_adjustment = counted_select, counted_adjust
     torch.cuda.reset_peak_memory_stats()
     corr_cuda.LAUNCHES.reset()
     flash_attn.LAUNCHES.reset()
@@ -1621,6 +1613,7 @@ def phase7(smi):
         warm_s = time.perf_counter() - t_start
         upd0, corr0, attn0 = (slam.stats["updates"], corr_cuda.LAUNCHES.count,
                               flash_attn.LAUNCHES.count)
+        eager0 = len(eager_scale)
         t0 = time.perf_counter()
         for f in range(WARM, WARM + WIN):
             slam(f, frames[f % 8], intr)
@@ -1631,16 +1624,23 @@ def phase7(smi):
                "attn": flash_attn.LAUNCHES.count - attn0}
         edges = slam.pg.E
         graphs = check.summary(slam)
+        eager_in_window = len(eager_scale) - eager0
+        ROOT.joinpath("build").mkdir(exist_ok=True)
+        prof = _profile_window(slam, frames, intr, WARM + WIN, PROF,
+                               ROOT / "build" / "phase7_profile.txt")
+        eager_steady = len(eager_scale) - eager0
         poses, _ = slam.terminate()
         torch.cuda.synchronize()
     finally:
-        runtime.dynamic_class_weight, runtime.select_score = dcw, sel
-        runtime.scale_adjustment = adj
+        runtime.select_score, runtime.scale_adjustment = sel, adj
     counts = {"corr": corr_cuda.LAUNCHES.count, "dino_flash_attn": flash_attn.LAUNCHES.count}
     t = {k: v.item() for k, v in tally.items()}
-    frames_run, M = WARM + WIN, slam.M
+    s = slam.stats
+    t.update({k: s[k] for k in runtime.HEAD_COUNTERS})
+    frames_run, M = WARM + WIN + 2 * PROF, slam.M
     shares = {"dynamic_tokens": t["dynamic_tokens"] / max(t["tokens"], 1),
-              "down_weighted_edges": t["down_weighted"] / max(t["edges"], 1)}
+              "down_weighted_edges": t["edges_downweighted"] / max(t["edges"], 1),
+              "scale_gate_open": t["scale_gate_open"] / max(t["scale_calls"], 1)}
     crafted = _scale_adjustment_on_card()
     checks = {
         "poses_shape": list(poses.shape) == [frames_run, 7],
@@ -1648,10 +1648,12 @@ def phase7(smi):
         "corr_1_per_update": counts["corr"] == slam.stats["updates"] and win["corr"] == win["updates"],
         "attn_12_per_frame": counts["dino_flash_attn"] == 12 * frames_run and win["attn"] == 12 * WIN,
         "one_update_per_frame": win["updates"] == WIN,
-        "one_replay_per_steady_frame": graphs["replays"] == frames_run - 8,
+        "one_replay_per_steady_frame": graphs["replays"] == WARM + WIN - 8,
         "replays_bitwise_equal_eager": graphs["checked_keys"] > 0 and graphs["bitwise"],
         "dynamic_token_share_in_0_1": 0 < shares["dynamic_tokens"] < 1,
-        "down_weighted_edges": t["down_weighted"] > 0,
+        "down_weighted_edges": t["edges_downweighted"] > 0,
+        "scale_adjusted_once_per_update": t["scale_calls"] == s["updates"],
+        "no_eager_scale_on_steady_frames": eager_in_window == eager_steady == 0,
         "no_zero_selected_score": t["zero_scores"] == 0 and t["selected"] == M * frames_run,
         "scale_adjustment_card_matches_cpu": (crafted["rate"] != 1.0
                                              and crafted["poses"] <= 1e-5
@@ -1668,6 +1670,10 @@ def phase7(smi):
           "frames": frames_run, "updates": stats["updates"],
           "keyframe_removals": stats["keyframe_removals"], "edges": edges,
           "shares": shares, "tally": t, "scale_adjustment_crafted": crafted,
+          "host_launch_calls_per_steady_frame": prof["host_launch_calls_per_frame"],
+          "profiled_frames": {k: prof[k] for k in ("wall_ms_per_frame", "device_busy_ms_per_frame",
+                                                   "device_idle_share",
+                                                   "graph_replays_per_frame")},
           "launches": counts, "graphs": graphs, "checks": checks, "card": smi,
           "peak_mem_gb": peak_gb, "dpt_subrun": dpt,
           "cuts": {"weights": "random (seed 0), heads random (seeds 14 and 12)",

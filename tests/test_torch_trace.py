@@ -228,3 +228,42 @@ def test_a_traced_cell_run_reads_the_twelve_metrics():
         assert name in got and np.isfinite(got[name]["value"]), name
     assert 0 < got["prep_cache_hit_share"]["value"] <= 1
     assert 0 <= got["eager_shift_share"]["value"] <= 1
+
+
+def test_the_heads_stages_lie_inside_features_and_after_ba(traced):
+    """A SLAM with the seg and depth heads (SCORE, FILTER_DYNAMIC_CLASS)
+    stamps ``select`` (SCORE's selection, then the chosen patches' seg
+    class) and ``depth`` inside ``features``, and ``scale`` after ``ba``
+    up to the step's end; the main path's rows (``traced``) have none of
+    them and keep their stages."""
+    cfg = get_cfg()
+    cfg.update(PATCHES_PER_FRAME=8, BUFFER_SIZE=32, MOTION_PROBE_THR=-1.0,
+               CENTROID_SEL_STRAT="SCORE", SEG_HEAD="random", DEPTH_HEAD="random",
+               FILTER_DYNAMIC_CLASS=True)
+    slam = SLAM(cfg, "cdv", ht=H, wd=W, device="cpu", seed=0)
+    for f, img in enumerate(_frames()):
+        slam(f, img, INTR)
+    rec = slam.trace
+    rows = trace.raw_rows(rec, "replay")
+    assert len(rows) == FRAMES - 8 and rec.stages["scale"][0] == FRAMES - 8
+    for row in rows:
+        st = row.stages
+        assert set(st) == {"shift", "features", "patches", "update", "ba", "scale", "upload",
+                           "select", "depth"}
+        order = [st[k] for k in ("shift", "features", "patches", "update", "ba", "scale")]
+        assert min(order) >= 0 and sum(order) == row.end_ns - row.start_ns
+        assert 0 <= st["select"] and 0 <= st["depth"] and st["select"] + st["depth"] <= st["features"]
+    # the last replay's stamps in the CPU ring, in order: after the shift
+    # (1), SCORE (8-9), the seg class (10-11), the depth head (12-13), the
+    # networks' end (2); the update operator's end (4), the scale start
+    # (14), the step's end (5)
+    t = rec._dev.ring[(rec._dev.cursor - 1) % trace.RING_DEVICE]
+    assert list(t[[1, 8, 9, 10, 11, 12, 13, 2]]) == sorted(t[[1, 8, 9, 10, 11, 12, 13, 2]])
+    assert t[4] <= t[14] <= t[5]
+    inserts = trace.raw_rows(rec, "insert")
+    assert inserts and all("select" in r.stages and "scale" not in r.stages for r in inserts)
+    main = traced[0].trace
+    for kind, stages in (("replay", ("shift", "features", "patches", "update", "ba", "upload")),
+                         ("insert", ("features", "patches", "upload")), ("update", ("update", "ba"))):
+        assert all(set(r.stages) == set(stages) for r in trace.raw_rows(main, kind)), kind
+    assert not {"select", "depth", "scale"} & set(main.stages)
