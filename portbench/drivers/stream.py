@@ -2,9 +2,11 @@
 
 Frames are views of a seeded plane texture from a camera circling above it
 (``yardstick.render``): ``period`` distinct views, rendered once on the
-device, handed to the SLAM from host memory, each upload started one frame
-ahead with ``SLAM.prefetch`` (``prefetch`` 1). A sequence has
-``sequence_frames`` frames on a new SLAM and ends with its ``terminate()``.
+device, each copied into an array of its own in host memory (as the
+program's reader hands frames over) and handed to the SLAM from there, each
+upload started one frame ahead with ``SLAM.prefetch`` (``prefetch`` 1). A
+sequence has ``sequence_frames`` frames on a new SLAM and ends with its
+``terminate()``.
 
 Set-up runs a sequence of ``warm_frames`` frames to its end (the
 initialisation, the captures of the steady-state graphs, ``terminate()``).
@@ -120,6 +122,8 @@ class Session:
     def __init__(self, env):
         self.env = env
         self.traffic = env.traffic
+        spec = env.cfgspec
+        self.network, self.ht, self.wd = spec["network"], spec["ht"], spec["wd"]
         self.slam = None
         self.clock = SyncClock()
         self.tap = None
@@ -135,25 +139,16 @@ class Session:
         from cdvslam_tpu_torch.config import get_cfg
         from portbench.ref.models import CDVNet, VONet
         from portbench.ref.weights import meta_model, state_dict
-        from portbench.yardstick.render import PlaneScene, loop_path, render_batch
 
         env, tr = self.env, self.traffic
-        spec = env.cfgspec
-        self.network, self.ht, self.wd = spec["network"], spec["ht"], spec["wd"]
         cfg = get_cfg()
-        for k, v in spec["settings"].items():
+        for k, v in env.cfgspec["settings"].items():
             cfg[k] = tuple(v) if isinstance(v, list) else v
         self.cfg = cfg
         self.sd = state_dict(meta_model(VONet if self.network == "dpv" else CDVNet),
                              env.seeds["weights"], env.device)
         env.mark("weights")
-        intr = np.asarray(tr["intrinsics"], np.float64) * np.array(
-            [self.wd / tr["source_wd"], self.ht / tr["source_ht"]] * 2)
-        scene = PlaneScene(intr, self.ht, self.wd, tex_size=tr["tex_size"],
-                           extent=tr["extent"], seed=env.seeds["texture"])
-        self.frames = list(render_batch(scene, loop_path(tr["period"], tr["period"]),
-                                        env.device))
-        self.intr = intr.astype(np.float32)
+        self.render()
         env.mark("render")
         rng = np.random.default_rng(env.seeds["picks"])
         self.tap = StepTap(rng.choice(np.arange(*tr["check_steps"]), tr["check_samples"],
@@ -171,6 +166,31 @@ class Session:
             torch.cuda.synchronize()
         env.mark("warm_terminate")
         return {"frames": tr["warm_frames"], "graph_keys": self.keys}
+
+    def render(self):
+        """``frames``: the ``period`` views, rendered on the device by
+        ``render_batch`` and each copied into a C-contiguous array of its
+        own, as a reader hands frames over; and ``intr``, the intrinsics at
+        the cell's size. ``render_batch``'s array keeps its frames
+        interleaved pixel by pixel (its frame stride is one pixel), so a
+        view of one frame is a gather over the whole array: ``SLAM.prefetch``
+        of one took 2.3-3.9 ms a call on an H100's host, against 0.3-0.45 ms
+        for a frame of its own, and a copy of each on the host 2-5 s in all.
+        The array goes to the device once, in its own layout, and each frame
+        is gathered there and copied back into an array of its own."""
+        from portbench.yardstick.render import PlaneScene, loop_path, render_batch
+        tr = self.traffic
+        intr = np.asarray(tr["intrinsics"], np.float64) * np.array(
+            [self.wd / tr["source_wd"], self.ht / tr["source_ht"]] * 2)
+        scene = PlaneScene(intr, self.ht, self.wd, tex_size=tr["tex_size"],
+                           extent=tr["extent"], seed=self.env.seeds["texture"])
+        views = render_batch(scene, loop_path(tr["period"], tr["period"]), self.env.device)
+        self.frames = []
+        for view in torch.from_numpy(views).to(self.env.device):
+            frame = np.empty(view.shape, views.dtype)
+            torch.from_numpy(frame).copy_(view)
+            self.frames.append(frame)
+        self.intr = intr.astype(np.float32)
 
     def new_slam(self):
         from cdvslam_tpu_torch.slam import SLAM
@@ -297,9 +317,12 @@ class Session:
     def context(self):
         """What the per-layer readers and the window's line read."""
         slam = self.traced
+        settings = self.env.cfgspec["settings"]
+        heads = {"score": settings.get("CENTROID_SEL_STRAT") == "SCORE",
+                 "seg": bool(settings.get("SEG_HEAD")), "depth": settings.get("DEPTH_HEAD")}
         ctx = {"cell": {"network": self.network, "ht": self.ht, "wd": self.wd,
                         "M": self.cfg.PATCHES_PER_FRAME,
-                        "C": slam.DIMF if slam is not None else None},
+                        "C": slam.DIMF if slam is not None else None, "heads": heads},
                "frames": self.n_frames, "window_s": self.window_s,
                "frame_log": [f[1:4] for f in self.frame_log],
                "sequences": self.sequences, "captures": self.captures, "last_update": None}

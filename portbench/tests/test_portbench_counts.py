@@ -5,6 +5,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from portbench.ref.models.dinov2 import Block, PatchEmbed
 from portbench.ref.models.encoder import BasicEncoder4
+from portbench.ref.models.heads import DepthHeadFlatten, SegHeadFlatten
 from portbench.ref.models.update import UpdateCDV, UpdateDPV, build_update_aux
 from portbench.ref.models.xfeat import XFeat
 from portbench.ref.models.attention import LearnableFourierPositionalEncoding
@@ -42,6 +43,19 @@ def test_xfeat_and_encoders_against_the_flop_counter():
         e = flops_of(lambda: BasicEncoder4(128)(torch.randn(1, 3, 32, 48)))
     assert counts.xfeat_flops(32, 48) == x
     assert counts.encoder_flops(32, 48, 128) == e
+
+
+def test_heads_against_the_flop_counter():
+    ht, wd, M = 42, 56, 5                  # 3 x 4 = 12 patch tokens
+    L = counts.dino_tokens(ht, wd) - 1
+    with torch.no_grad():
+        seg = SegHeadFlatten()
+        every = flops_of(lambda: seg(torch.randn(L, 384)))
+        chosen = flops_of(lambda: seg(torch.randn(M, 384)))
+        depth = flops_of(lambda: DepthHeadFlatten()(torch.randn(L, 768)))
+    assert counts.heads_flops(ht, wd, M, True, True, True) == every + chosen + depth
+    assert counts.heads_flops(ht, wd, M, False, True, False) == chosen
+    assert counts.heads_flops(ht, wd, M, False, False, False) == 0
 
 
 def _edges(M=4):

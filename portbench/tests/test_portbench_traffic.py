@@ -1,9 +1,11 @@
 """The traffic: deterministic per seed, different across seeds, and the
 sequence and rate rules of each mix."""
 import json
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 from portbench import cell
 from portbench.yardstick.render import PlaneScene, loop_path, render_batch
@@ -65,4 +67,28 @@ def test_mix_rules(mix):
     assert 1 <= lo and hi - lo >= t["check_samples"] > 0
     assert hi <= t["sequence_frames"] - 8
     assert (t["source_ht"], t["source_wd"]) == (480, 752)
-    assert t["driver"] == "stream" and t["prefetch"] == 1
+    assert (cell.BENCH / "drivers" / f"{t['driver']}.py").is_file()
+    assert callable(cell.load_driver(t["driver"]).Session)
+    assert t["prefetch"] == 1
+
+
+@pytest.mark.parametrize("mix", MIXES)
+def test_the_driver_hands_each_frame_in_an_array_of_its_own(mix):
+    """Each frame owns its data, C-contiguous, shares no buffer with
+    another, and is bitwise ``render_batch``'s view."""
+    t = json.loads((cell.BENCH / "traffic" / f"{mix}.json").read_text())
+    t.update(period=5, tex_size=256)
+    seeds = cell.derive_seeds(2**31 + 29)
+    env = SimpleNamespace(traffic=t, seeds=seeds, device=torch.device("cpu"),
+                          cfgspec={"network": "cdv", "ht": 64, "wd": 96, "settings": {}})
+    sess = cell.load_driver(t["driver"]).Session(env)
+    sess.render()
+    got = sess.frames
+    assert len(got) == 5
+    for k, f in enumerate(got):
+        assert f.flags.owndata and f.flags.c_contiguous and f.base is None
+        assert not any(np.may_share_memory(f, g) for g in got[k + 1:])
+    intr = np.asarray(t["intrinsics"]) * np.array([96 / t["source_wd"], 64 / t["source_ht"]] * 2)
+    scene = PlaneScene(intr, 64, 96, tex_size=256, extent=t["extent"], seed=seeds["texture"])
+    want = render_batch(scene, loop_path(5, 5), "cpu")
+    assert want.dtype == np.uint8 and np.array_equal(np.stack(got), want)

@@ -103,6 +103,17 @@ def frame_flops(network, ht, wd, E, n_patches, n_groups, M, C):
     return nets + corr_flops(E, C) + update_flops(network, E, n_patches, n_groups, M)
 
 
+def heads_flops(ht, wd, M, score, seg, depth):
+    """CDVO++'s linear heads over one frame: under SCORE selection the seg
+    head (384 -> 150 ADE20K classes) over every patch token, the seg head
+    over the M chosen patches, and the linear depth head over every patch
+    token ([token; cls], 768 -> 256 bins, then the bins' dot product); the
+    seg head's BatchNorm and the depth map's resize are left out."""
+    D, L, classes, bins = DINO["dim"], dino_tokens(ht, wd) - 1, 150, 256
+    return (score * linear_flops(L, D, classes) + seg * linear_flops(M, D, classes)
+            + depth * (linear_flops(L, 2 * D, bins) + linear_flops(L, bins, 1)))
+
+
 def _levels(coords):
     """The coordinates at pyramid levels 1 and 2."""
     return coords, coords / 4.0
