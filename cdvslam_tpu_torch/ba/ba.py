@@ -24,6 +24,14 @@ wider residual gate, the depth clamp to [1e-3, 10]), its bounds gate
 (``bounds``) and ``structure_only`` (depths only) are options; the
 inference path is unchanged by them. The whole solve is differentiable:
 the training rollout backpropagates through it.
+
+Each iteration is the plain chain ``_linearize`` (every edge's rows of the
+sums), the sums and the solve, then ``_update`` (the step). On the card,
+for CUDA float32 inputs with the inference numerics and no gradient, the
+two kernels of ``ops/ba_cuda.py`` (``csrc/ba_edges.cu``) run in place of
+``_linearize`` and ``_update`` and give their bits; everywhere else (the
+CPU, float64, autograd, the training numerics or ``bounds``) the plain
+chain runs.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import torch
 
 from ..lie import se3_adjT, se3_retr
 from ..lie.quaternion import qconj, qmul, qrot
+from ..ops import ba_cuda
 from ..ops.scatter import SegmentPlan
 
 
@@ -107,6 +116,42 @@ def _validity(r, x1, y1, Z, cx, cy, params: BAParams, bounds):
             & (x1 > bounds[0]) & (y1 > bounds[1]) & (x1 < bounds[2]) & (y1 < bounds[3]))
 
 
+def _linearize(poses, patches, intrinsics, target, weight, ii, jj, kk, mask,
+               params: BAParams, bounds):
+    """The plain chain of one iteration's rows, in the order the plans sum
+    them: (4E, 6, 6) pose-pose blocks [Bii, Bjj, -Bij, -Bij^T], (2E, 6)
+    pose-depth rows [ei, ej], (2E, 6) gradient rows [vi, vj], and the (E,)
+    rows of C and u."""
+    cx, cy = intrinsics[2], intrinsics[3]
+    r, Ji, Jj, Jz, (x1, y1, Z) = _edge_terms(
+        poses, patches, intrinsics, target, ii, jj, kk, params.z_min)
+    inb = _validity(r, x1, y1, Z, cx, cy, params, bounds)
+    ok = (inb & mask)[:, None]
+    w = weight * ok.to(poses.dtype)
+    r = torch.where(ok, r, torch.zeros_like(r))
+
+    def blk(Ja, Jb):
+        return torch.einsum("er,eri,erj->eij", w, Ja, Jb)
+
+    Bii, Bjj, Bij = blk(Ji, Ji), blk(Jj, Jj), -blk(Ji, Jj)
+    ei = -torch.einsum("er,eri,er->ei", w, Ji, Jz)
+    ej = torch.einsum("er,eri,er->ei", w, Jj, Jz)
+    vi_vec = -torch.einsum("er,eri->ei", w * r, Ji)
+    vj_vec = torch.einsum("er,eri->ei", w * r, Jj)
+    return (torch.cat([Bii, Bjj, Bij, Bij.transpose(1, 2)], 0), torch.cat([ei, ej], 0),
+            torch.cat([vi_vec, vj_vec], 0), torch.sum(w * Jz * Jz, -1),
+            torch.sum(w * r * Jz, -1))
+
+
+def _on_kernels(params: BAParams, bounds, *tensors):
+    """Whether the card's kernels (``ops.ba_cuda``) run the iterations: CUDA
+    float32 inputs, the inference numerics and gate, and no gradient. They
+    give the plain chain's bits; everything else runs the plain chain."""
+    return (bounds is None and params.depth_clamp_mode == "inference"
+            and all(t.is_cuda and t.dtype == torch.float32 for t in tensors)
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)))
+
+
 def ba_solve(poses, patches, intrinsics, target, weight, ii, jj, kk, mask, t0,
              *, N: int, K: int, iterations: int = 2,
              params: BAParams = INFERENCE_PARAMS, structure_only: bool = False,
@@ -115,8 +160,6 @@ def ba_solve(poses, patches, intrinsics, target, weight, ii, jj, kk, mask, t0,
     (new tensors; the inputs are not modified). ``structure_only``: solve
     the depths alone (dZ = Q u), poses fixed. ``bounds``: the training
     gate's box (x0, y0, x1, y1) in place of the inference margin."""
-    cx, cy = intrinsics[2], intrinsics[3]
-    dtype = poses.dtype
     dev = poses.device
     E = ii.shape[0]
     NP = poses.shape[0]
@@ -150,32 +193,25 @@ def ba_solve(poses, patches, intrinsics, target, weight, ii, jj, kk, mask, t0,
     # window rows t0 .. t0 + N - 1; rows past the buffer write to a dump row
     win = torch.arange(N, device=dev) + t0
     win_rows = torch.where(win < NP, win, torch.full_like(win, NP))
+    kernels = _on_kernels(params, bounds, poses, patches, intrinsics, target, weight)
 
     for _ in range(iterations):
-        r, Ji, Jj, Jz, (x1, y1, Z) = _edge_terms(
-            poses, patches, intrinsics, target, ii, jj, kid, params.z_min)
-        inb = _validity(r, x1, y1, Z, cx, cy, params, bounds)
-        ok = (inb & mask)[:, None]
-        w = weight * ok.to(dtype)
-        r = torch.where(ok, r, torch.zeros_like(r))
-
-        def blk(Ja, Jb):
-            return torch.einsum("er,eri,erj->eij", w, Ja, Jb)
-
-        Bii, Bjj, Bij = blk(Ji, Ji), blk(Jj, Jj), -blk(Ji, Jj)
-        ei = -torch.einsum("er,eri,er->ei", w, Ji, Jz)
-        ej = torch.einsum("er,eri,er->ei", w, Jj, Jz)
-        vi_vec = -torch.einsum("er,eri->ei", w * r, Ji)
-        vj_vec = torch.einsum("er,eri->ei", w * r, Jj)
-
-        Bflat = plan_b.sum(torch.cat([Bii, Bjj, Bij, Bij.transpose(1, 2)], 0))
+        if kernels:
+            rows = ba_cuda.linearize(poses, patches, intrinsics, target, weight, ii, jj, kid,
+                                     mask, params)
+        else:
+            rows = _linearize(poses, patches, intrinsics, target, weight, ii, jj, kid, mask,
+                              params, bounds)
+        rows_b, rows_e, rows_v, row_c, row_u = rows
+        Bflat = plan_b.sum(rows_b)
         B = Bflat.reshape(N, N, 6, 6).permute(0, 2, 1, 3).reshape(6 * N, 6 * N)
-        Emat = plan_e.sum(torch.cat([ei, ej], 0)).reshape(N, K, 6)
-        C = plan_k.sum(torch.sum(w * Jz * Jz, -1))
-        u = plan_k.sum(torch.sum(w * r * Jz, -1))
-        v = plan_v.sum(torch.cat([vi_vec, vj_vec], 0)).reshape(6 * N)
+        Emat = plan_e.sum(rows_e).reshape(N, K, 6)
+        C = plan_k.sum(row_c)
+        u = plan_k.sum(row_u)
+        v = plan_v.sum(rows_v).reshape(6 * N)
 
         Q = 1.0 / (C + params.lmbda)
+        dX_flat = None
         if structure_only:
             dZ = Q * u
         else:
@@ -190,20 +226,33 @@ def ba_solve(poses, patches, intrinsics, target, weight, ii, jj, kk, mask, t0,
             failed = (info != 0) | torch.isnan(dX_flat).any()
             dX_flat = torch.where(failed, torch.zeros_like(dX_flat), dX_flat)
             dZ = Q * (u - Ef.T @ dX_flat)
-            dX = dX_flat.reshape(N, 6)
 
-            ext = torch.cat([poses, poses[:1]])
-            ext = ext.index_copy(0, win_rows, se3_retr(ext[win_rows], dX.to(dtype)))
-            poses = ext[:NP]
-
-        d_old = patches[:, 2, 0, 0]
-        d_new = d_old + dZ.to(dtype)
-        if params.depth_clamp_mode == "training":
-            d_new = torch.where(touched, d_new.clamp(1e-3, 10.0), d_old)
+        if kernels:
+            poses, patches = ba_cuda.update(poses, patches, dX_flat, dZ, touched, win_rows)
         else:
-            # reset exploded depths, floor at 1e-4 (the inference solver's clamps)
-            d_new = torch.where(d_new > 20.0, torch.ones_like(d_new), d_new)
-            d_new = torch.where(touched, d_new.clamp(min=1e-4), d_old)
-        patches = patches.clone()
-        patches[:, 2] = d_new[:, None, None]
+            poses, patches = _update(poses, patches, dX_flat, dZ, touched, win_rows, params)
+    return poses, patches
+
+
+def _update(poses, patches, dX_flat, dZ, touched, win_rows, params: BAParams):
+    """The plain step: the window's poses retracted by dX_flat (6N,) (None:
+    depths alone), the inverse depths moved by dZ and clamped."""
+    dtype = poses.dtype
+    if dX_flat is not None:
+        NP = poses.shape[0]
+        dX = dX_flat.reshape(-1, 6)
+        ext = torch.cat([poses, poses[:1]])
+        ext = ext.index_copy(0, win_rows, se3_retr(ext[win_rows], dX.to(dtype)))
+        poses = ext[:NP]
+
+    d_old = patches[:, 2, 0, 0]
+    d_new = d_old + dZ.to(dtype)
+    if params.depth_clamp_mode == "training":
+        d_new = torch.where(touched, d_new.clamp(1e-3, 10.0), d_old)
+    else:
+        # reset exploded depths, floor at 1e-4 (the inference solver's clamps)
+        d_new = torch.where(d_new > 20.0, torch.ones_like(d_new), d_new)
+        d_new = torch.where(touched, d_new.clamp(min=1e-4), d_old)
+    patches = patches.clone()
+    patches[:, 2] = d_new[:, None, None]
     return poses, patches

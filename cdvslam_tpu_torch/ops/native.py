@@ -44,6 +44,8 @@ SIGNATURES = {
     "trace": {"trace_stamp": [_P, _P, _I, _I, _I, _I, _P],
               "trace_ticks": [_P, _I, _P]},
     "segsum": {"segment_sum_forward": [_P, _P, _P, _P, _I, _I, _I, _P]},
+    "ba_edges": {"ba_linearize_forward": [_P] * 9 + [_I, _I] + [ctypes.c_float] * 3 + [_P] * 6,
+                 "ba_update_forward": [_P] * 6 + [_I] * 4 + [_P] * 3},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

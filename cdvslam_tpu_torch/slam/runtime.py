@@ -50,9 +50,10 @@ upload itself; the stamps are read at the end of each steady frame, once
 their copy to the host has landed (the keyframe wait has already waited
 for later work), and at ``terminate()``: no synchronisation of their own. ``stats`` counts
 besides the aux-row cache's hits and misses, the keyframe shifts folded
-into a replay or run eagerly, and the segment-sum kernel's launches in the
-SLAM's calls (``segsum_launches``: a replay adds what its capture launched;
-0 on the CPU).
+into a replay or run eagerly, and the launches in the SLAM's calls of the
+segment-sum kernel (``segsum_launches``) and of the BA iteration's kernels
+(``ba_edges_launches``: a linearization and an update an iteration); a
+replay adds what its capture launched; 0 on the CPU.
 """
 from __future__ import annotations
 
@@ -77,7 +78,7 @@ from ..models.patchifier import (
     coords_grid_with_index, extract_patches, pyramidify, random_candidates, seg_binary_score,
     select_gradient_bias, select_random, select_random_grid, select_score,
 )
-from ..ops import segsum_cuda
+from ..ops import ba_cuda, segsum_cuda
 from ..ops.patchify import patchify
 from ..utils import trace as tracing
 from .fused import FrameInputs, FusedKey, FusedStep
@@ -231,7 +232,8 @@ class SLAM:
         self.stats = {"updates": 0, "keyframe_removals": 0, "loop_edges": 0,
                       "global_ba": 0, "lc_attempts": 0, "lc_applied": 0,
                       "prep_cache_hits": 0, "prep_cache_misses": 0,
-                      "shifts_deferred": 0, "shifts_eager": 0, "segsum_launches": 0}
+                      "shifts_deferred": 0, "shifts_eager": 0, "segsum_launches": 0,
+                      "ba_edges_launches": 0}
         if self._tally is not None:
             self.stats.update(dict.fromkeys(HEAD_COUNTERS, 0))
         if self.trace.on:
@@ -925,14 +927,24 @@ class SLAM:
             raise RuntimeError(
                 f"The buffer size is too small. You can increase it using "
                 f'"--opts BUFFER_SIZE={self.N * 2}"')
-        launches = segsum_cuda.LAUNCHES.count
+        launches = self._launches()
         with self.trace.span("frame", frame=pg.counter, steady=False):
             if self.is_initialized:
                 out = self._call_fused(tstamp, image, intrinsics)
             else:
                 out = self._call_init(tstamp, image, intrinsics)
-        self.stats["segsum_launches"] += segsum_cuda.LAUNCHES.count - launches
+        self._count_launches(launches)
         return out
+
+    @staticmethod
+    def _launches():
+        return segsum_cuda.LAUNCHES.count, ba_cuda.LAUNCHES.count
+
+    def _count_launches(self, before):
+        """Add the kernel launches since ``before`` (``_launches()``) to stats."""
+        for key, now, then in zip(("segsum_launches", "ba_edges_launches"), self._launches(),
+                                  before):
+            self.stats[key] += now - then
 
     def _call_init(self, tstamp, image, intrinsics):
         """A frame before the initialization: the eager insert, the motion
@@ -1031,10 +1043,10 @@ class SLAM:
         chain) and their timestamps. It also converts the patch colours to
         uint8 RGB in ``pg.colors_`` and joins the viewer. The tracer keeps
         this SLAM's record from here on (``utils.trace.ended``)."""
-        launches = segsum_cuda.LAUNCHES.count
+        launches = self._launches()
         with self.trace.span("terminate"):
             out = self._terminate()
-        self.stats["segsum_launches"] += segsum_cuda.LAUNCHES.count - launches
+        self._count_launches(launches)
         self.trace.end()
         return out
 

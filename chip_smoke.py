@@ -59,6 +59,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
      device times (CUDA graph replays) against the gather +
      torch.segment_reduce it replaced and the bytes bound, the plain
      version's and an eager call's times
+  3-ba  the BA iteration's two kernels (``ops/ba_cuda.py``) at the three
+     cells' edge counts (E_pad 10,240, 12,288, 16,384; K 2,688, N 16):
+     linearize and update bitwise equal to the plain chain and to a second
+     call, one launch a call, a whole ba_solve on them bitwise equal to the
+     plain one; device times (CUDA graph replays) of each and of the solve
+     against the plain chain's, the bytes bound, and the kernels one replay
+     of the BA stage (ba_solve and the flow magnitude) launches with and
+     without them, from the profiler
   4  the main path: SLAM(get_cfg(), "cdv", 480, 752) with seeded random
      weights and 8 seeded random frames cycled, each prefetched one frame
      ahead (SLAM.prefetch), 60 warm-up frames, one 100-frame timed
@@ -70,7 +78,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
      the prefetch() call and the plain upload; the median wait below the
      median copy), terminate(); poses finite, corr launched once per update and flash
      attention 12 times per frame, the segment-sum kernel 8 times per
-     update, one graph replay per steady-state frame,
+     update and the BA's kernels 4 times (``stats``), one graph replay per
+     steady-state frame,
      every key checked outside the timed window bitwise equal to the eager
      body; the corr inputs of the last warm-up frame's update are captured
   4-f32  40 frames of the main path with MIXED_PRECISION=False: FPS, poses
@@ -965,6 +974,143 @@ def phase3_segsum():
     return recs
 
 
+def _bits_equal(a, b):
+    """Equal bit for bit, signed zeros and NaN included."""
+    import torch
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _kernel_launches(fn):
+    """Device kernels (memory copies and sets apart) one replay of fn()
+    captured in a CUDA graph runs, from the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset")))
+
+
+def phase3_ba():
+    """The BA iteration's two kernels (``ops/ba_cuda.py``) at the three
+    cells' edge counts (phase 3's window, its 9,600 edges padded to E_pad
+    10,240, 12,288 and 16,384 with masked edges): ``linearize`` and
+    ``update`` bitwise equal to the plain chain (``ba._linearize``,
+    ``ba._update``) and to a second call, one launch a call; device times
+    of each against the plain chain's (5 alternating rounds of 20 calls
+    replayed from a CUDA graph) and the bytes bound; a whole
+    ``ba_solve`` (2 iterations) on the kernels bitwise equal to the plain
+    one, its device time against the plain one's, and the device kernels
+    one replay of the BA stage (``ba_solve`` and the flow magnitude, as
+    ``kernels.update_body`` runs them) launches with and without the
+    kernels, from the profiler."""
+    import torch
+    from cdvslam_tpu_torch.ba import ba as bamod
+    from cdvslam_tpu_torch.geom import flow_mag
+    from cdvslam_tpu_torch.lie import SE3
+    from cdvslam_tpu_torch.ops import ba_cuda
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    poses, patches, intr, target, weight, ii, jj, kk, K = _ba_window(gen)
+    N, t0, NP, P = 16, 12, poses.shape[0], patches.shape[-1]
+    params = bamod.INFERENCE_PARAMS
+    recs, ok = {}, True
+    for cell, E_pad in (("cdvo", 10240), ("dpvo", 12288), ("cdvopp", 16384)):
+        pad = E_pad - E
+
+        def padded(t):
+            return torch.cat([t, t.new_zeros((pad, *t.shape[1:]))])
+        args = (poses, patches, intr, padded(target), padded(weight), padded(ii), padded(jj),
+                padded(kk), torch.arange(E_pad, device="cuda") < E)
+        before = ba_cuda.LAUNCHES.count
+        rows, again = ba_cuda.linearize(*args, params), ba_cuda.linearize(*args, params)
+        lin_launches = ba_cuda.LAUNCHES.count - before
+        plain = bamod._linearize(*args, params, None)
+        dX = 0.01 * torch.randn(6 * N, generator=gen, device="cuda")
+        dZ = 0.1 * torch.randn(K, generator=gen, device="cuda")
+        dZ[:50] = 50.0                        # past 20: reset to 1
+        touched = torch.rand(K, generator=gen, device="cuda") > 0.1
+        win = torch.arange(N, device="cuda") + t0
+        win_rows = torch.where(win < NP, win, torch.full_like(win, NP))
+        upd_args = (poses, patches, dX, dZ, touched, win_rows)
+        before = ba_cuda.LAUNCHES.count
+        step, step2 = ba_cuda.update(*upd_args), ba_cuda.update(*upd_args)
+        upd_launches = ba_cuda.LAUNCHES.count - before
+        plain_step = bamod._update(*upd_args, params)
+        solve_args = (*args[:-1], args[-1], t0)
+        solve_kw = {"N": N, "K": K, "iterations": 2}
+        solved = bamod.ba_solve(*solve_args, **solve_kw)
+        real = bamod._on_kernels
+
+        def plain_solve():
+            bamod._on_kernels = lambda *a: False
+            try:
+                return bamod.ba_solve(*solve_args, **solve_kw)
+            finally:
+                bamod._on_kernels = real
+        solved_plain = plain_solve()
+
+        def stage(solve):
+            def run():
+                out_poses, out_patches = solve()
+                fm, _ = flow_mag(SE3(out_poses[None]), out_patches[None], intr[None], args[5],
+                                 args[6], args[7], beta=0.5)
+                return fm[0].mean(dim=(-1, -2))
+            return run
+        checks = {
+            "linearize_bitwise_plain": all(_bits_equal(a, b) for a, b in zip(rows, plain)),
+            "linearize_bitwise_repeat": all(_bits_equal(a, b) for a, b in zip(rows, again)),
+            "update_bitwise_plain": all(_bits_equal(a, b) for a, b in zip(step, plain_step)),
+            "update_bitwise_repeat": all(_bits_equal(a, b) for a, b in zip(step, step2)),
+            "solve_bitwise_plain": all(_bits_equal(a, b) for a, b in zip(solved, solved_plain)),
+            "one_launch_a_call": lin_launches == 2 and upd_launches == 2,
+        }
+        ok &= all(checks.values())
+        fns = {"linearize": lambda: ba_cuda.linearize(*args, params),
+               "linearize_plain": lambda: bamod._linearize(*args, params, None),
+               "update": lambda: ba_cuda.update(*upd_args),
+               "update_plain": lambda: bamod._update(*upd_args, params),
+               "solve": lambda: bamod.ba_solve(*solve_args, **solve_kw),
+               "solve_plain": plain_solve}
+        rounds = {key: [] for key in fns}
+        for i in range(5):
+            for key in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+                rounds[key].append(graph_time(fns[key], 20 if "solve" not in key else 5))
+        ms = {key: statistics.median(v) for key, v in rounds.items()}
+        # linearize: each edge's inputs (target, weight, ii, jj, kk, mask) and
+        # rows (4 x 36 + 4 x 6 + 2 floats) once, the pose and patch centres once;
+        # update: the patch window read and written, dZ, touched, the poses
+        lin_bytes = E_pad * (8 + 8 + 24 + 1 + 4 * 170) + NP * 28 + K * 12
+        upd_bytes = 2 * patches.numel() * 4 + K * 5 + 2 * NP * 28 + 6 * N * 4
+        recs[cell] = {
+            "E_pad": E_pad, "K": K, "N": N, "checks": checks,
+            "linearize": {"ms": ms["linearize"], "plain_ms": ms["linearize_plain"],
+                          "bytes": lin_bytes, "bound_ms": lin_bytes / HBM_BYTES_PER_S * 1e3},
+            "update": {"ms": ms["update"], "plain_ms": ms["update_plain"],
+                       "bytes": upd_bytes, "bound_ms": upd_bytes / HBM_BYTES_PER_S * 1e3},
+            "solve": {"ms": ms["solve"], "plain_ms": ms["solve_plain"]},
+            "stage_launches_per_replay": {
+                "kernels": _kernel_launches(stage(fns["solve"])),
+                "plain": _kernel_launches(stage(plain_solve))},
+            "rounds": rounds}
+    emit({"phase": "3-ba", "cases": recs, "ok": ok})
+    if not ok:
+        raise SystemExit("phase 3-ba: the BA kernels failed their checks")
+    return recs
+
+
 def phase4(smi):
     """The main path, each frame prefetched one frame ahead
     (``SLAM.prefetch``); returns the launch counts, the corr kernel's inputs
@@ -988,7 +1134,7 @@ def phase4(smi):
     import numpy as np
     import torch
     from cdvslam_tpu_torch.config import get_cfg
-    from cdvslam_tpu_torch.ops import corr_cuda, flash_attn, segsum_cuda
+    from cdvslam_tpu_torch.ops import ba_cuda, corr_cuda, flash_attn, segsum_cuda
     from cdvslam_tpu_torch.slam import SLAM
     from cdvslam_tpu_torch.utils import trace
     ht, wd, WARM, WIN, BLOCK, BLOCKS = 480, 752, 60, 100, 20, 20
@@ -1011,6 +1157,7 @@ def phase4(smi):
     corr_cuda.LAUNCHES.reset()
     flash_attn.LAUNCHES.reset()
     segsum_cuda.LAUNCHES.reset()
+    ba_cuda.LAUNCHES.reset()
     slam = SLAM(cfg, network="cdv", ht=ht, wd=wd, seed=0)
     # the last warm-up frame's replay (pg.counter is past it when it runs)
     check = ReplayCheck(pick=lambda s: s.pg.counter == WARM)
@@ -1020,7 +1167,7 @@ def phase4(smi):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t_start
     upd0, corr0, attn0 = slam.stats["updates"], corr_cuda.LAUNCHES.count, flash_attn.LAUNCHES.count
-    sum0 = segsum_cuda.LAUNCHES.count
+    sum0, ba0 = segsum_cuda.LAUNCHES.count, ba_cuda.LAUNCHES.count
     t0 = time.perf_counter()
     run(range(WARM, WARM + WIN))
     torch.cuda.synchronize()
@@ -1029,6 +1176,7 @@ def phase4(smi):
     win_corr = corr_cuda.LAUNCHES.count - corr0
     win_attn = flash_attn.LAUNCHES.count - attn0
     win_sums = segsum_cuda.LAUNCHES.count - sum0
+    win_ba = ba_cuda.LAUNCHES.count - ba0
     edges = slam.pg.E
     block_s = {False: [], True: []}
     blocks_ns = time.perf_counter_ns()
@@ -1048,7 +1196,7 @@ def phase4(smi):
     poses, tstamps = slam.terminate()
     torch.cuda.synchronize()
     counts = {"corr": corr_cuda.LAUNCHES.count, "dino_flash_attn": flash_attn.LAUNCHES.count,
-              "segsum": segsum_cuda.LAUNCHES.count}
+              "segsum": segsum_cuda.LAUNCHES.count, "ba_edges": ba_cuda.LAUNCHES.count}
     frames_run = WARM + WIN + BLOCK * BLOCKS
     q1, med, q3 = statistics.quantiles(block_s[False], n=4)
     prefetch_ratio = statistics.median(block_s[True]) / med
@@ -1074,6 +1222,9 @@ def phase4(smi):
         # torch.segment_reduce) and SoftAgg's 2
         "segsum_8_per_update": (counts["segsum"] == 8 * slam.stats["updates"]
                                 == slam.stats["segsum_launches"] and win_sums == 8 * WIN),
+        # the BA's two kernels, each once an iteration of 2
+        "ba_edges_4_per_update": (counts["ba_edges"] == 4 * slam.stats["updates"]
+                                  == slam.stats["ba_edges_launches"] and win_ba == 4 * WIN),
         "one_update_per_frame": win_updates == WIN,
         "one_replay_per_steady_frame": graphs["replays"] == frames_run - 8,
         "replays_bitwise_equal_eager": graphs["checked_keys"] > 0 and graphs["bitwise"],
@@ -2747,6 +2898,7 @@ def main():
     train_rec = phase2_train()
     phase3()
     segsum_rec = phase3_segsum()
+    ba_rec = phase3_ba()
     counts, captured, fps_main, graphs_main = phase4(smi)
     f32_counts = phase4_f32(smi)
     main_rec = corr_on_captured(5, captured)
@@ -2858,6 +3010,24 @@ def main():
          "max_abs_err_softagg": agg["max_abs_err"], "rounds_softagg": agg["rounds"],
          "by_sum": {k: {key: r[key] for key in ("ms", "bound_ms", "library_ms")}
                     for k, r in segsum_rec.items()}})
+    for name, replaces in (("ba_linearize", "the plain chain ba._linearize: _edge_terms, "
+                             "_validity, the masking, the einsums and the cats of the rows"),
+                            ("ba_update", "the plain step ba._update: se3_retr of the window, "
+                             "the index_copy, the depth step and its clamps")):
+        key = name[3:]
+        rec = ba_rec["cdvo"][key]
+        kernels.append(
+            {"name": name, "route": "cuda", "source": "cdvslam_tpu_torch/csrc/ba_edges.cu",
+             "replaces": "no TPU kernel: " + replaces,
+             "launches": counts["ba_edges"] // 2, "max_abs_err": 0.0, "ms": rec["ms"],
+             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": "bytes",
+             "library_ms": None, "bytes": rec["bytes"],
+             "per": "one call at E_pad 10,240 (K 2,688, N 16); ms and plain_ms are device "
+                    "times, medians of 5 alternating rounds of 20 calls replayed from a CUDA "
+                    "graph; bitwise equal to the plain chain (max_abs_err 0)",
+             "launches_counting": counting, "launches_per_update": 2,
+             "by_cell": {c: {k: r[key][k] for k in ("ms", "plain_ms", "bound_ms")}
+                         for c, r in ba_rec.items()}})
     t, runs = train_rec["times"], train["runs"]
     per = ("one call at the sparse training shape, packed qkv (15, 1611, 1152); ms, "
            "plain_ms and library_ms from phase 2-train; launches: phase 9's {} run ({})")

@@ -37,7 +37,13 @@ exactly (a gather); the segment-sum kernel bitwise equal to its plain
 version on the CPU (the same order of summation) and, on rows of more
 than one element, to ``SegmentPlan.sum`` on the card, which runs it,
 within the worst-case rounding of its dtype of a float64 sum, and bitwise
-repeatable, in and out of a CUDA graph; the Sim3 PGO at n = 200 on the card against the CPU,
+repeatable, in and out of a CUDA graph; the BA iteration's two kernels
+(``ops/ba_cuda.py``) bitwise equal to the plain chain they replace (signed
+zeros and NaN included) at the three cells' edge counts, with masked
+edges, depths behind the camera, residuals over 128 px, projections
+outside the margin, NaN weights, depths past 20 and untouched patches,
+and a whole ``ba_solve`` on them bitwise equal to the plain one and to the
+benchmark's frozen copy, eagerly and in a CUDA graph replay; the Sim3 PGO at n = 200 on the card against the CPU,
 both solving in float64, 1e-6 per component; the classical backend's
 worker thread (its own stream) against the same close_loop inline, poses
 and depths 1e-6; the data-parallel dry run on the card by its own rule
@@ -58,6 +64,7 @@ from cdvslam_tpu_torch.models.heads import DepthHeadFlatten, SegHeadFlatten
 from cdvslam_tpu_torch.ops import corr_cuda, flash_attn
 from cdvslam_tpu_torch.ops.corr import corr_pyramid_plain
 from cdvslam_tpu_torch.slam import SLAM
+from ba_cases import SHAPES, ba_case, solve_args, update_case
 from segsum_cases import float64_sum, torch_case
 
 pytestmark = pytest.mark.cuda
@@ -548,6 +555,138 @@ def test_segment_sum_kernel_in_a_graph_replay(card):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, SegmentPlan(ids_t, 256).sum(vals_t * scale)), scale
+
+
+def _bits(a, b):
+    """Equal bit for bit: signed zeros and NaN payloads included."""
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(ints), b.view(ints))
+
+
+def _lin_args(case):
+    from cdvslam_tpu_torch.ba.ba import INFERENCE_PARAMS
+    return (*(case[k] for k in ("poses", "patches", "intrinsics", "target", "weight", "ii", "jj",
+                                "kk", "mask")), INFERENCE_PARAMS)
+
+
+@pytest.mark.parametrize("edge_cases", [False, True], ids=["plain", "edge_cases"])
+@pytest.mark.parametrize("cell", list(SHAPES))
+def test_ba_linearize_is_the_plain_chain(card, cell, edge_cases):
+    """Every row the sums read (the pose blocks, the pose-depth and gradient
+    rows, C and u) bitwise the plain chain's, one launch, and a second call
+    the same bits."""
+    from cdvslam_tpu_torch.ba.ba import _linearize
+    from cdvslam_tpu_torch.ops import ba_cuda
+    case = ba_case(card, E_pad=SHAPES[cell], edge_cases=edge_cases, nan_weight=edge_cases,
+                   seed=SHAPES[cell] + edge_cases)
+    before = ba_cuda.LAUNCHES.count
+    got, again = ba_cuda.linearize(*_lin_args(case)), ba_cuda.linearize(*_lin_args(case))
+    assert ba_cuda.LAUNCHES.count - before == 2
+    want = _linearize(*_lin_args(case), None)
+    assert all(_bits(a, b) for a, b in zip(got, want))
+    assert all(_bits(a, b) for a, b in zip(got, again))
+    assert bool(want[3].isnan().any()) == edge_cases     # the NaN weights reach C
+
+
+@pytest.mark.parametrize("past_end", [0, 3])
+@pytest.mark.parametrize("cell", list(SHAPES))
+def test_ba_update_is_the_plain_step(card, cell, past_end):
+    """The retracted window (zero, small-angle and large steps; window rows
+    past the buffer dropped) and the depth step (reset above 20, floor at
+    1e-4, untouched patches kept), bitwise the plain step's, new tensors,
+    one launch a call; with no dX (``structure_only``) the poses are the
+    input tensor itself."""
+    from cdvslam_tpu_torch.ba.ba import INFERENCE_PARAMS, _update
+    from cdvslam_tpu_torch.ops import ba_cuda
+    case = ba_case(card, E_pad=SHAPES[cell], seed=3, past_end=past_end)
+    dX, dZ, touched, win_rows = update_case(case)
+    poses, patches = case["poses"].clone(), case["patches"].clone()
+    before = ba_cuda.LAUNCHES.count
+    for step in (dX, None):
+        got = ba_cuda.update(poses, patches, step, dZ, touched, win_rows)
+        want = _update(poses, patches, step, dZ, touched, win_rows, INFERENCE_PARAMS)
+        assert all(_bits(a, b) for a, b in zip(got, want))
+        assert got[1].data_ptr() != patches.data_ptr()
+        assert (got[0] is poses) == (step is None)
+        assert _bits(ba_cuda.update(poses, patches, step, dZ, touched, win_rows)[1], got[1])
+    assert ba_cuda.LAUNCHES.count - before == 4
+    assert torch.equal(poses, case["poses"]) and torch.equal(patches, case["patches"])
+    assert not torch.equal(want[1], patches)
+
+
+@pytest.mark.parametrize("structure_only", [False, True], ids=["poses", "structure_only"])
+@pytest.mark.parametrize("cell", list(SHAPES))
+def test_ba_solve_on_the_kernels_is_the_plain_solve(card, monkeypatch, cell, structure_only):
+    """A whole two-iteration solve on the kernels (two launches an
+    iteration; with structure_only the update skips its pose half) bitwise
+    equal to the plain chain and to the benchmark's frozen copy, eagerly
+    and in a CUDA graph replay (on the captured buffers' new values too)."""
+    from cdvslam_tpu_torch.ba import ba as bamod
+    from cdvslam_tpu_torch.ops import ba_cuda
+    from portbench.ref.ba import ba as frozen
+    case = ba_case(card, E_pad=SHAPES[cell], seed=7)
+    args, kw = solve_args(case)
+    kw["structure_only"] = structure_only
+    before = ba_cuda.LAUNCHES.count
+    got = bamod.ba_solve(*args, **kw)
+    assert ba_cuda.LAUNCHES.count - before == 4
+    want = frozen.ba_solve(*args, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(bamod, "_on_kernels", lambda *a: False)
+        plain = bamod.ba_solve(*args, **kw)
+    assert ba_cuda.LAUNCHES.count - before == 4
+    assert all(_bits(a, b) and _bits(a, c) for a, b, c in zip(got, plain, want))
+    assert not torch.equal(got[1], case["patches"])
+    assert torch.equal(got[0], case["poses"]) == structure_only
+
+    inputs = [a.clone() if torch.is_tensor(a) else a for a in args]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bamod.ba_solve(*inputs, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = ba_cuda.LAUNCHES.count
+    with torch.cuda.graph(graph):
+        out = bamod.ba_solve(*inputs, **kw)
+    assert ba_cuda.LAUNCHES.count - before == 4
+    other = ba_case(card, E_pad=SHAPES[cell], seed=8)
+    for src in (case, other, case):
+        a, _ = solve_args(src)
+        for buf, val in zip(inputs, a):
+            if torch.is_tensor(buf):
+                buf.copy_(val)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = frozen.ba_solve(*a, **kw)
+        assert all(_bits(x, y) for x, y in zip(out, want))
+
+
+def test_ba_solve_keeps_the_plain_chain_off_its_kernels(card):
+    """float64, autograd, the training numerics and ``bounds`` run the plain
+    chain on the card too: no launch; the same inputs that require grad
+    run the kernels under no_grad; the wrappers refuse CUDA float64."""
+    from cdvslam_tpu_torch.ba import ba as bamod
+    from cdvslam_tpu_torch.ops import ba_cuda
+    case = ba_case(card, E_pad=2048, E=1900, seed=5)
+    args, kw = solve_args(case)
+    a64 = tuple(a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args)
+    grad = (args[0].clone().requires_grad_(), *args[1:])
+    before = ba_cuda.LAUNCHES.count
+    assert bamod.ba_solve(*a64, **kw)[0].dtype == torch.float64
+    bamod.ba_solve(*grad, **kw)[0].sum().backward()
+    bamod.ba_solve(*args, **kw, params=bamod.TRAINING_PARAMS)
+    bamod.ba_solve(*args, **kw, bounds=(0.0, 0.0, 188.0, 120.0))
+    assert ba_cuda.LAUNCHES.count == before and grad[0].grad is not None
+    with torch.no_grad():
+        bamod.ba_solve(*grad, **kw)
+    assert ba_cuda.LAUNCHES.count - before == 4
+    with pytest.raises(ValueError, match="CUDA float32"):
+        ba_cuda.linearize(*_lin_args({k: a64[i] for i, k in enumerate(
+            ("poses", "patches", "intrinsics", "target", "weight", "ii", "jj", "kk", "mask"))}))
+    dX, dZ, touched, win_rows = update_case(case)
+    with pytest.raises(ValueError, match="CUDA float32"):
+        ba_cuda.update(a64[0], a64[1], dX.double(), dZ.double(), touched, win_rows)
 
 
 def _pgo_ring(n=200, seed=0, noise=0.01):

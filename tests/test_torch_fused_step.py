@@ -15,6 +15,8 @@ runs eagerly. Held here, on 64 x 96 frames with 8 patches a frame:
 - ``SLAM._prepare_update``'s cached rows against an uncached build at every
   update of two runs: one with keyframe removals, one with loop edges
   (every steady frame shifts the edge pattern by one frame);
+- a CPU SLAM counts no launch of the segment-sum kernel or of the BA's
+  kernels (``stats``);
 - the keyframe shift: ``kernels.shift_rows`` at spans inside and outside
   the band the step carries (1 to KEYFRAME_INDEX + 2) against the slices
   the eager ``_kf_apply`` wrote before the shift moved into the step, and
@@ -136,6 +138,16 @@ def test_segment_plan_counts_as_bincount_and_sums_bitwise():
         want = torch.segment_reduce(vals[torch.argsort(clipped, stable=True)], "sum",
                                     lengths=lengths, axis=0)[:S]
         assert torch.equal(plan.sum(vals), want)
+
+
+def test_no_kernel_launch_is_counted_on_the_cpu():
+    """A CPU SLAM's updates, its initialization's and ``terminate()``'s
+    included, run the plain BA and sums: its launch counters stay 0."""
+    slam = _slam()
+    _drive(slam, 12)
+    slam.terminate()
+    assert slam.stats["updates"] > 12
+    assert slam.stats["ba_edges_launches"] == slam.stats["segsum_launches"] == 0
 
 
 @pytest.mark.parametrize("overrides", [{}, LOOP], ids=["removals", "loop_edges"])
